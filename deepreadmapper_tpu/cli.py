@@ -125,10 +125,9 @@ def _add_build(sub):
     p.add_argument("M_hnsw", nargs="?", type=int, default=16)
     p.add_argument("EFC", nargs="?", type=int, default=200)
     p.add_argument("--index-type", default="INT8FLAT",
-                   help="INT8FLAT (production default: int8 MXU scan, "
-                        "near-exact — recall@10 0.995 vs HNSWPQ's PQ8-"
-                        "capped 0.72-0.82, and 17x faster on TPU; see "
-                        "scripts/eval_hnswpq.py) | FLAT | IVFINT8 "
+                   help="INT8FLAT (production default: int8 exhaustive "
+                        "scan, near-exact recall where HNSWPQ is capped by "
+                        "PQ8; see scripts/eval_hnswpq.py) | FLAT | IVFINT8 "
                         "(cluster-pruned int8 scan, sub-linear — the "
                         ">100M-row tier; EF acts as nprobe) | IVFPQ "
                         "(cluster-pruned ADC scan over PQ codes: sub-"
@@ -144,7 +143,7 @@ def _add_build(sub):
                         "partition medoids")
     p.add_argument("--build-mode", default="insert", choices=["insert", "knn"],
                    help="HNSW construction: incremental insert (default) or "
-                        "the MXU kNN-graph builder")
+                        "the matmul kNN-graph builder")
     p.add_argument("--shards", type=int, default=1,
                    help="shard the index over N mesh positions "
                         "(multi-chip/multi-host serving)")
@@ -204,9 +203,10 @@ def _add_plan(sub):
     p.add_argument("ref_len", nargs="?", type=int, default=150)
     p.add_argument("--stride", type=int, default=0,
                    help="fix the stride (default: recommend one)")
-    p.add_argument("--hbm-gb", type=float, default=12.0,
-                   help="usable HBM per chip for index residency "
-                        "(16 GB chip minus scan workspace; default 12)")
+    p.add_argument("--hbm-gb", type=float, default=60.0,
+                   help="device memory per card for index residency "
+                        "(an 80 GB H100 times JAX's 0.75 preallocation; "
+                        "default 60)")
 
 
 def _add_inference(sub):
@@ -273,6 +273,13 @@ def main(argv=None) -> int:
     _add_finetune(sub)
     _add_gen_ref(sub)
     args = ap.parse_args(argv)
+    if args.cmd in ("pipeline", "build-index", "serve", "inference",
+                    "finetune"):
+        from deepreadmapper_tpu.utils.compile_cache import (
+            enable_compile_cache,
+        )
+
+        enable_compile_cache()
 
     if args.cmd == "pipeline":
         from deepreadmapper_tpu.pipeline.search import run_pipeline
@@ -433,8 +440,8 @@ def main(argv=None) -> int:
         return 0
 
     if args.cmd == "plan":
-        # Sizing heuristics from the measured round-2 numbers (BASELINE.md /
-        # docs/DEPLOYMENT.md): bytes/vector per engine, accuracy levers.
+        # Sizing heuristics: bytes/vector per engine (docs/DEPLOYMENT.md),
+        # accuracy levers.
         if os.path.exists(args.genome):
             from deepreadmapper_tpu.utils.memory import estimate_window_count
 

@@ -21,7 +21,7 @@ class InferenceConfig:
     """Encoder inference parameters (reference config.hpp:16-26).
 
     The reference pipelines 2048 concurrent OpenVINO requests of batch 100;
-    on TPU a single large device batch saturates the MXU instead.
+    here a single large device batch keeps the accelerator busy instead.
     """
 
     max_len: int = 123          # model sequence length (tokens)
@@ -39,7 +39,7 @@ class BuildConfig:
     nbits: int = 8              # bits per PQ code
     m_hnsw: int = 16            # HNSW graph degree
     efc: int = 200              # HNSW efConstruction
-    build_mode: str = "insert"  # "insert" (incremental) | "knn" (MXU kNN graph)
+    build_mode: str = "insert"  # "insert" (incremental) | "knn" (matmul kNN graph)
     level_mode: str = "rng"     # "rng" | "centroid" (hnswm's deterministic
                                 # partition-medoid levels, hnsw.cpp:701-796)
     sample_rate: float = 0.5    # fraction of vectors used to train PQ

@@ -1,8 +1,10 @@
 """Exact (brute-force) index — the recall oracle.
 
-TPU-native replacement for the reference's BruteForce engine
+Replacement for the reference's BruteForce engine
 (src/hnswm/bruteforce.cpp:27-110): squared-L2 top-k as a tiled matmul +
-lax.top_k (ops/topk.py) instead of per-thread heaps.  Ids are sequential
+lax.top_k (ops/topk.py) instead of per-thread heaps.  The products are
+pinned at lax.Precision.HIGHEST (ops/topk.EXACT), so the oracle is exact in
+fp32 on the GPU too, where the default would be TF32.  Ids are sequential
 positions in insertion order, which for the dense windowed reference equal the
 label ids (2*pos | strand).
 """

@@ -1,8 +1,8 @@
-"""HNSW index with TPU-vectorized batched beam search.
+"""HNSW index with a vectorized batched beam search.
 
 The reference's active engine is FAISS IndexHNSWPQ (src/hnswpq/): HNSW graph
 over PQ codes, per-query sequential descent parallelized with OpenMP.  A
-literal port would be a terrible TPU program — graph traversal is sequential
+literal port would be a poor accelerator program — graph traversal is sequential
 and divergent.  Instead (SURVEY.md §3.4, §7) the per-query loop of
 hnswm's searchLayer (src/hnswm/hnsw.cpp:575-633) is vectorized ACROSS a batch
 of queries:
@@ -212,8 +212,8 @@ class HNSWPQIndex:
                stats: dict | None = None):
         """stats, when a dict is passed, is filled with SEARCH-EFFORT
         counters (the hnswm distance-call profiling idea,
-        /root/reference/src/hnswm/hnsw.cpp:18-39, recast for the
-        fixed-shape TPU beam): the SPMD beam search does DETERMINISTIC
+        src/hnswm/hnsw.cpp:18-39, recast for the fixed-shape
+        beam): the SPMD beam search does DETERMINISTIC
         work per query — `ef` expansion iterations of 2M neighbor slots
         each plus the greedy level descent — so the counters are computed
         from the graph shape rather than device-side instrumentation

@@ -8,7 +8,7 @@ selection with degree pruning M / 2M.
 
 Construction is sequential by nature, so it runs on host over fp32 vectors
 with vectorized numpy distance batches; the search side (hnsw.py) is the
-TPU-vectorized part.  A native C++ builder can drop in behind the same arrays
+vectorized part.  A native C++ builder can drop in behind the same arrays
 for genome-scale builds.
 
 Graph layout produced (device-friendly padded CSR):

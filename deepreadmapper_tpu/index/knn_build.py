@@ -1,15 +1,15 @@
-"""TPU-native graph construction: exact kNN on the MXU + vectorized pruning.
+"""Graph construction: exact kNN as matmuls + vectorized pruning.
 
 The reference ships a second, parallel graph builder — the GANN-paper CPU port
 (src/gann_hnsw/gann_hnsw.cpp:168-278): every worker brute-forces a kNN graph
 over its partition (dmin=M forward edges), backward edges are gathered and
 scattered in (:612-659), and degrees are pruned to dmax=2M.  That design is a
-much better fit for the MXU than incremental HNSW insertion, so the TPU build
+much better fit for an accelerator than incremental HNSW insertion, so this build
 inverts the default: the *entire* kNN graph is computed as tiled
 ``||a-b||^2 = ||a||^2 - 2ab + ||b||^2`` matmuls (ops/topk.py), the FAISS
 shrink heuristic (faiss HNSW::shrink_neighbor_list semantics, same as
 hnsw_build._select_neighbors_heuristic) runs as ONE lax.scan over candidate
-rank — all N nodes pruned in lockstep on the VPU — and backward edges are a
+rank — all N nodes pruned in lockstep — and backward edges are a
 host integer scatter followed by a second vectorized prune to the 2M cap.
 
 Upper HNSW levels reuse the same deterministic exponential level assignment as
@@ -17,10 +17,8 @@ the insertion builder (hnsw_build.assign_levels) so the two builders produce
 interchangeable HNSWGraphData; upper layers are tiny (N/M^l nodes) and are
 built by the same kNN+prune on the subset.
 
-Complexity is O(N^2 D) flops — pure MXU work.  On one chip this crosses over
-ahead of the native insertion builder (native/drm_hnsw.cpp) for every N that
-fits HBM; for genome-scale N the builder streams reference chunks, so memory
-is O(N*K), not O(N^2).
+Complexity is O(N^2 D) flops — pure matmul work.  For genome-scale N the
+builder streams reference chunks, so memory is O(N*K), not O(N^2).
 """
 
 from __future__ import annotations
@@ -41,7 +39,7 @@ def exact_knn(
     vectors: np.ndarray,
     k: int,
     query_chunk: int = 8192,
-    ref_chunk: int = 262144,
+    ref_chunk: int = 131072,
 ):
     """Self-excluded exact kNN of every row against all rows.
 
@@ -56,9 +54,8 @@ def exact_knn(
     kq = min(k + 1, n)  # +1 so the self hit can be dropped
     out_d = np.empty((n, k), dtype=np.float32)
     out_i = np.empty((n, k), dtype=np.int64)
-    # Dispatch every chunk before fetching any result: fetches are the sync
-    # points on this backend (~25-30 ms link latency each), so interleaving
-    # them with dispatch would serialize the whole sweep.
+    # Dispatch every chunk before fetching any result: a fetch blocks the
+    # host, so interleaving fetches with dispatch would serialize the sweep.
     pending = []
     for s in range(0, n, query_chunk):
         e = min(s + query_chunk, n)
@@ -104,7 +101,7 @@ def _prune_heuristic_device(vecs, cand_vecs, cand_d, cand_valid, cap: int):
     """
     del vecs
     b, kk, _ = cand_vecs.shape
-    # Pairwise candidate-candidate squared L2: [B, K, K] batched matmul (MXU).
+    # Pairwise candidate-candidate squared L2: [B, K, K] batched matmul.
     sq = jnp.sum(cand_vecs * cand_vecs, axis=-1)
     cross = jnp.einsum("bkd,bjd->bkj", cand_vecs, cand_vecs)
     pair = sq[:, :, None] + sq[:, None, :] - 2.0 * cross
@@ -310,7 +307,7 @@ def build_hnsw_knn(
     k_cand: int | None = None,
     level_mode: str = "rng",
 ) -> HNSWGraphData:
-    """MXU kNN-graph HNSW construction (GANN-equivalent, TPU-first).
+    """Matmul kNN-graph HNSW construction (GANN-equivalent).
 
     Produces the same HNSWGraphData layout as hnsw_build.build_hnsw so the
     batched beam search (hnsw.py) is builder-agnostic.  k_cand (default 3M)

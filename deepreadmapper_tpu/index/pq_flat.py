@@ -3,22 +3,19 @@
 The IVF-style fallback SURVEY.md §7 anticipates: instead of traversing a
 graph, scan ALL PQ codes with ADC distances.  Same quantization error as
 FAISS IndexHNSWPQ (src/hnswpq/index.cpp:86-193), none of its graph recall
-loss, at 8 B/vector of HBM residency — the human-genome engine.
+loss, at 8 B/vector of device residency — the human-genome engine.
 
-TPU formulation (v2): ADC distance to the PQ reconstruction equals the exact
-squared L2 to the reconstructed vector, so the scan reconstructs each code
-chunk on the fly (one-hot @ block-diagonal int8 codebook — exactly
-int8-valued) and scores it with the MXU's native int8 path, identical to
-INT8FLAT's scan:
+Formulation: ADC distance to the PQ reconstruction equals the exact squared
+L2 to the reconstructed vector, so the scan reconstructs each code chunk
+(a gather from the int8-valued codebook, exact) and scores it with int8
+products exactly like INT8FLAT's scan:
 
     score = ||q8||^2 + ||recon8||^2 - 2 * q8 . recon8      (exact int32)
 
-This replaces the previous [Q, m*ksub] one-hot-tables matmul (256x FLOP
-inflation -> 16x fewer MXU FLOPs at m=8, d=128) and adds int8 (2x bf16 MXU
-rate).  On TPU the default search is the fused Pallas scan
-(ops/scan_kernel.py, norms recomputed in-kernel); this module holds the
-engine plumbing plus the chunked exact-in-quantized-space oracle (row norms
-precomputed, int32) used for parity and as the CPU fallback.
+Codes live on the device as uint8 [N, m] (8 B/row at m=8).  At genome scale
+on the GPU the search is the windowed scan of ops/scan_kernel.py; this
+module holds the engine plumbing plus the chunked exact-in-quantized-space
+top-k used for parity and on the CPU.
 """
 
 from __future__ import annotations
@@ -39,43 +36,31 @@ _BIG = np.float32(3.4e38)  # np scalar: a module-level jnp call would init the b
 
 
 @functools.partial(jax.jit, static_argnames=("k", "chunk", "exact"))
-def _pq_int8_topk(q8: jax.Array, codes_t: jax.Array, rn: jax.Array,
-                  cent_flat: jax.Array, ntotal: jax.Array, k: int,
-                  chunk: int, exact: bool = True, ratio=1.0):
-    """Streaming top-k over a reconstruct-then-int8-scan of PQ codes
-    (the exact-in-quantized-space oracle / CPU fallback for the fused
-    Pallas path in ops/scan_kernel.py).
+def _pq_int8_topk(q8: jax.Array, codes: jax.Array, cent8: jax.Array,
+                  ntotal: jax.Array, k: int, chunk: int, exact: bool = True,
+                  ratio=1.0):
+    """Streaming top-k over a reconstruct-then-int8-scan of PQ codes.
 
-    q8 [Q, d] int8, codes_t [m, N] int32 TRANSPOSED (a [N, m] device array
-    would lane-pad ~16x — 20 GB at 40M rows; only the per-chunk [chunk, m]
-    transpose is ever materialized), rn [N] int32 = ||recon8||^2 per row,
-    cent_flat [m*ksub, d] bf16 block-diagonal int8-valued decoder.  ratio =
-    sq/sc, the query/code quantization-scale ratio (1.0 when the query
-    batch fits the codebook scale without clipping); all terms are exact
-    integers (< 2^24) carried in fp32, so at ratio == 1 ordering equals
-    exact int32 ordering.
+    q8 [Q, d] int8, codes [N, m] uint8 (N a chunk multiple), cent8
+    [m, ksub, dsub] int8 codebook.  ratio = sq/sc, the query/code
+    quantization-scale ratio (1.0 when the query batch fits the codebook
+    scale without clipping); all terms are exact integers (< 2^24) carried
+    in fp32, so at ratio == 1 ordering equals exact int32 ordering.
     """
     qn = jnp.sum(
         q8.astype(jnp.int32) * q8.astype(jnp.int32), axis=-1, dtype=jnp.int32
     ).astype(jnp.float32)
-    m, n = codes_t.shape
-    ksub = cent_flat.shape[0] // m
+    n, m = codes.shape
     n_chunks = n // chunk
-    code_chunks = jnp.moveaxis(codes_t.reshape(m, n_chunks, chunk), 1, 0)
-    rn_chunks = rn.reshape(n_chunks, chunk)
+    code_chunks = codes.reshape(n_chunks, chunk, m)
     r = jnp.asarray(ratio, jnp.float32)
 
     def step(carry, inp):
         best_d, best_i = carry
-        cc_t, rnc, c_idx = inp
-        onehot = pq_ops.codes_to_onehot(cc_t.T, ksub=ksub)  # [chunk, m*ksub]
-        recon = jax.lax.dot_general(
-            onehot,
-            cent_flat,
-            dimension_numbers=(((1,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32,
-        )  # [chunk, d] fp32, exactly int8-valued (single 1.0*int8 products)
-        recon8 = recon.astype(jnp.int8)
+        cc, c_idx = inp
+        recon8 = sk.reconstruct_pq(cc, cent8)  # [chunk, d] int8, exact
+        ri = recon8.astype(jnp.int32)
+        rn = jnp.sum(ri * ri, axis=-1)
         dot = jax.lax.dot_general(
             q8,
             recon8,
@@ -84,7 +69,7 @@ def _pq_int8_topk(q8: jax.Array, codes_t: jax.Array, rn: jax.Array,
         )  # [Q, chunk] int32, exact
         d = (
             r * r * qn[:, None]
-            + rnc[None, :].astype(jnp.float32)
+            + rn[None, :].astype(jnp.float32)
             - (2.0 * r) * dot.astype(jnp.float32)
         )
         ids = c_idx * chunk + jax.lax.broadcasted_iota(jnp.int32, (1, chunk), 1)
@@ -92,7 +77,6 @@ def _pq_int8_topk(q8: jax.Array, codes_t: jax.Array, rn: jax.Array,
         if exact:
             nd, pos = jax.lax.top_k(-d, k)
         else:
-            # TPU-native partial reduction: ~15x faster than top_k at 2M rows
             nd, pos = jax.lax.approx_max_k(-d, k, recall_target=0.95)
         nid = jnp.take_along_axis(jnp.broadcast_to(ids, d.shape), pos, axis=1)
         cat_d = jnp.concatenate([best_d, -nd], axis=1)
@@ -105,15 +89,14 @@ def _pq_int8_topk(q8: jax.Array, codes_t: jax.Array, rn: jax.Array,
         jnp.zeros((q8.shape[0], k), dtype=jnp.int32),
     )
     (d, i), _ = jax.lax.scan(
-        step, init,
-        (code_chunks, rn_chunks, jnp.arange(n_chunks, dtype=jnp.int32)),
+        step, init, (code_chunks, jnp.arange(n_chunks, dtype=jnp.int32)),
     )
     return d, i
 
 
 @register_index("PQFLAT")
 class PQFlatIndex:
-    _CHUNK = 131072  # bounds the transient [chunk, m*ksub] one-hot (512 MB)
+    _CHUNK = 131072  # bounds the per-chunk [Q, chunk] score tensor
 
     def __init__(self, codes: np.ndarray, codebook: pq_ops.PQCodebook,
                  ntotal: int, rot: np.ndarray | None = None):
@@ -126,7 +109,6 @@ class PQFlatIndex:
         self.rot = None if rot is None else np.asarray(rot, np.float32)
         self.cb8 = pq_ops.quantize_codebook(codebook)
         self._dev = None
-        self._dev_oracle = None
 
     @classmethod
     def build(cls, embeddings: np.ndarray, cfg: BuildConfig | None = None):
@@ -159,42 +141,21 @@ class PQFlatIndex:
         return codes
 
     def _device(self):
-        """Codes + the int8 codebook on device, padded ONCE to a chunk
-        multiple (per-search padding would re-copy + re-upload).  Codes
-        upload TRANSPOSED as int32 [m, Np] (dense under the (8,128) tiling;
-        both scan paths consume this layout)."""
+        """Codes [Np, m] uint8 (padded ONCE to a chunk multiple; per-search
+        padding would re-copy + re-upload) + the int8 codebook on device."""
         if self._dev is None:
-            codes = self._padded_codes()
-            cent2d = self.cb8.cent8.reshape(-1, self.cb8.cent8.shape[-1])
-            # codes upload TRANSPOSED [m, Np]: TPU arrays tile as (8, 128),
-            # so a [Np, m] array would lane-pad to 128/m times its size
             self._dev = (
-                jnp.asarray(codes.T.astype(np.int32)),
-                jnp.asarray(cent2d.astype(np.float32), jnp.bfloat16),
+                jnp.asarray(self._padded_codes()),
+                jnp.asarray(self.cb8.cent8),
             )
         return self._dev
-
-    def _device_oracle(self):
-        """Row norms + block-diagonal decoder for the non-fused scan only —
-        computed lazily (an 8-pass host gather over all rows plus a 4 B/row
-        upload the fused TPU path never reads)."""
-        if self._dev_oracle is None:
-            codes = self._padded_codes()
-            rn = pq_ops.recon_norms(codes, self.cb8.cent_norms)
-            cent_flat = pq_ops.cent8_block_diag(self.cb8.cent8)
-            self._dev_oracle = (
-                jnp.asarray(rn),
-                jnp.asarray(cent_flat, jnp.bfloat16),
-            )
-        return self._dev_oracle
 
     def search(self, queries: np.ndarray, k: int, ef: int = 0,
                chunk: int | None = None, exact: bool = False):
         """ef accepted for interface parity; an exhaustive scan ignores it.
         exact=True forces a full per-chunk top_k in the quantized space (the
-        parity oracle); the default takes the fused Pallas scan on TPU
-        (windowed top-1 + approx merge, deterministic, ~0.98 top-128 recall
-        vs the exact scan) or approx_max_k elsewhere."""
+        parity oracle); otherwise the GPU takes the windowed scan at genome
+        scale (one survivor per 128-row window, exact merge)."""
         n = self.ntotal
         queries = np.asarray(queries, np.float32)
         if self.rot is not None and queries.size:
@@ -205,8 +166,8 @@ class PQFlatIndex:
                 np.full((queries.shape[0], k), np.inf, np.float32),
             )
         k_eff = min(k, n)
-        codes_t, cent2d = self._device()
-        np_ = int(codes_t.shape[1])
+        codes, cent8 = self._device()
+        np_ = int(codes.shape[0])
         from deepreadmapper_tpu.index.int8_flat import (
             quantize_host,
             query_scale_ratio,
@@ -226,22 +187,21 @@ class PQFlatIndex:
         if use_fused:
             fchunk = sk.choose_chunk(np_)
             qn_all = (q8_all.astype(np.int64) ** 2).sum(1).astype(np.float32)
+            width = sk.pad_queries(nq, q_batch)
             for s in range(0, nq, q_batch):
                 e = min(s + q_batch, nq)
                 qb = q8_all[s:e]
-                width = q_batch if nq > q_batch else (e - s + (-(e - s)) % sk.QT)
                 if qb.shape[0] < width:
                     qb = np.pad(qb, ((0, width - qb.shape[0]), (0, 0)))
-                qt_b = jnp.asarray(qb.T, jnp.bfloat16)
                 pending.append(
                     (s, e,
-                     sk.fused_scan_topk(qt_b, codes_t, n, k_eff, fchunk,
-                                        "pq", cent2d=cent2d, ratio=ratio))
+                     sk.fused_scan_topk(jnp.asarray(qb), codes, n, k_eff,
+                                        fchunk, "pq", cent8=cent8,
+                                        ratio=ratio))
                 )
         else:
-            rn_j, cent_flat = self._device_oracle()
             eff_chunk = min(chunk or self._CHUNK, np_)
-            if np_ % eff_chunk:  # padding granularity (2048) < _CHUNK
+            if np_ % eff_chunk:  # padding granularity (sk.CT) < _CHUNK
                 eff_chunk = np_
             for s in range(0, nq, q_batch):
                 e = min(s + q_batch, nq)
@@ -251,16 +211,16 @@ class PQFlatIndex:
                     qb = np.pad(qb, ((0, q_batch - (e - s)), (0, 0)))
                 pending.append(
                     (s, e,
-                     _pq_int8_topk(jnp.asarray(qb), codes_t, rn_j,
-                                   cent_flat, jnp.int32(n), k_eff, eff_chunk,
-                                   exact, ratio))
+                     _pq_int8_topk(jnp.asarray(qb), codes, cent8,
+                                   jnp.int32(n), k_eff, eff_chunk, exact,
+                                   ratio))
                 )
         d = np.empty((nq, k_eff), np.float32)
         i = np.empty((nq, k_eff), np.int64)
         s2 = sc * sc
         for s, e, (db, ib) in pending:
-            # quantized-space scores -> fp32 squared L2 estimate; the fused
-            # kernel returns rn - 2(sq/sc) q.r, so add the scaled query norm
+            # quantized-space scores -> fp32 squared L2 estimate; the
+            # windowed scan returns rn - 2(sq/sc) q.r, so add the query norm
             db = np.asarray(db)[: e - s]
             if use_fused:
                 db = db + (ratio * ratio) * qn_all[s:e, None]

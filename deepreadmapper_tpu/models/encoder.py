@@ -1,10 +1,9 @@
-"""TPU-native 2-layer bidirectional GRU read encoder (JAX).
+"""2-layer bidirectional GRU read encoder (JAX).
 
 Replaces the reference's OpenVINO inference engine (src/inference/fast_model.cpp,
 src/inference/vectorize.cpp) with a jitted JAX model.  Where the reference
 pipelines 2048 concurrent CPU infer-requests of batch 100 at fixed shape
-[123, 100], we run one large batch-major [B, 123] device batch and let the MXU
-eat the gate matmuls.
+[123, 100], we run one large batch-major [B, 123] device batch.
 
 Math (ONNX/OpenVINO GRU, gate order z,r,h, linear_before_reset=true — matching
 PyTorch GRU semantics, models/finetuned_sgn33-new-a-Apr6.xml GRUSequence layers):
@@ -16,15 +15,12 @@ PyTorch GRU semantics, models/finetuned_sgn33-new-a-Apr6.xml GRUSequence layers)
 
 with B = [bz(=Wbz+Rbz), br(=Wbr+Rbr), Wbh, Rbh] (shape 256 per direction).
 
-TPU mapping:
-  * The input-side gate projections for ALL timesteps are one big
-    [B*T, in] @ [in, 192] matmul, hoisted out of the scan (MXU-bound).
-  * The recurrence is a lax.scan over 123 steps; per step one
-    [B, 64] @ [64, 192] matmul + VPU gate math.  With B in the thousands the
-    MXU stays fed despite the small hidden size.
-  * Both directions and both layers share this structure; the reverse
-    direction scans the time-reversed sequence.
-  * compute dtype bfloat16 (default float32 for parity testing); params are
+Device mapping:
+  * Each layer is one call of gru_pallas.gru_bi: on the GPU a Triton kernel
+    that fuses the input projection, the recurrence and the gate math for
+    both directions; on the CPU a hoisted [B*T, in] @ [in, 192] projection
+    plus a lax.scan over 123 steps.
+  * compute dtype bfloat16 or float32 (the default, for parity); params are
     kept fp32 and cast at entry.
 
 Output parity target: the reference model's [B, 128] fp32 embeddings (final
@@ -45,6 +41,13 @@ from deepreadmapper_tpu.models import ir_loader
 HIDDEN = 64
 OUT_SIZE = 2 * HIDDEN
 MAX_LEN = 123
+
+# The encoder's XLA products run at full fp32 precision on every backend:
+# the GPU's default is TF32 (about three decimal digits), which would make
+# GPU embeddings differ from the CPU reference by more than summation
+# order.  The GPU GRU kernel uses 3xTF32 instead (gru_pallas.KERNEL_PRECISION,
+# fp32-level: 2.4e-6 max abs against this path at B=8192 on the H100).
+MATMUL_PRECISION = "highest"
 
 
 class GRULayerParams(NamedTuple):
@@ -89,38 +92,30 @@ def load_params(npz_path: str = ir_loader.DEFAULT_NPZ) -> EncoderParams:
 def encode_tokens_impl(params: EncoderParams, tokens: jax.Array, dtype: str = "float32") -> jax.Array:
     """Trace-safe body of encode_tokens (callers may jit it fused with more).
 
-    Layout strategy (why this beats the naive transliteration ~2x even before
-    the Pallas kernel): the embedding gather is batch-major [B,T,64]; the
-    layer-1 input-gate projections run on the gather's CONTIGUOUS flat view
-    and only the small 192-wide result is transposed to time-major; the
-    backward direction uses reverse index maps / lax.scan(reverse=True)
-    instead of materializing [::-1] copies of the 1.4 GB gate arrays; layer 2
-    projects straight from the time-major concat with no transposes at all.
+    Layout: the tokens (2 B/element) are transposed rather than any
+    activation, so the embedding gather lands directly in time-major
+    [T, B, 64] and no activation relayout happens.  Each layer runs both
+    directions in one call (gru_pallas.gru_bi): the input projection is
+    fused with the recurrence, the reverse direction walks time backwards
+    by index, and layer 1 writes forward || backward straight into the
+    [T, B, 128] input of layer 2.  XLA's products run at MATMUL_PRECISION.
     """
-    from deepreadmapper_tpu.models.gru_pallas import gru_proj_last, gru_proj_seq
+    from deepreadmapper_tpu.models.gru_pallas import gru_bi
 
     cdt = jnp.dtype(dtype)
-    emb = params.embedding.astype(cdt)
-    # Tokens travel host->HBM as uint16 (ids < 7638) to halve transfer cost.
-    # Transpose the TOKENS (2 B/element) rather than any activation tensor:
-    # the gather then lands directly in time-major layout and no multi-GB
-    # relayout ever happens (activation transposes cost ~70 ms at B=15k).
-    x = emb[tokens.astype(jnp.int32).T]  # [T, B, 64] time-major
+    with jax.default_matmul_precision(MATMUL_PRECISION):
+        emb = params.embedding.astype(cdt)
+        # tokens travel host->device as uint16 (ids < 7638)
+        x = emb[tokens.astype(jnp.int32).T]  # [T, B, 64] time-major
 
-    def cast_layer(p: GRULayerParams) -> GRULayerParams:
-        return GRULayerParams(*(a.astype(cdt) for a in p))
+        def cast_layer(p: GRULayerParams) -> GRULayerParams:
+            return GRULayerParams(*(a.astype(cdt) for a in p))
 
-    # The input-gate projections are fused INTO the recurrence kernels so the
-    # [T,B,192] gate arrays never round-trip through HBM (gru_pallas).
-    p0 = cast_layer(params.layers[0])
-    hf = gru_proj_seq(x, p0.w[0], p0.bzr[0], p0.r[0], p0.rbh[0], False)
-    hb = gru_proj_seq(x, p0.w[1], p0.bzr[1], p0.r[1], p0.rbh[1], True)
-    out1 = jnp.concatenate([hf, hb], axis=-1)  # [T, B, 128] time-major
-
-    p1 = cast_layer(params.layers[1])
-    hf_T = gru_proj_last(out1, p1.w[0], p1.bzr[0], p1.r[0], p1.rbh[0], False)
-    hb_T = gru_proj_last(out1, p1.w[1], p1.bzr[1], p1.r[1], p1.rbh[1], True)
-    return jnp.concatenate([hf_T, hb_T], axis=-1).astype(jnp.float32)
+        p0 = cast_layer(params.layers[0])
+        out1 = gru_bi(x, p0.w, p0.bzr, p0.r, p0.rbh, False)  # [T, B, 128]
+        p1 = cast_layer(params.layers[1])
+        out = gru_bi(out1, p1.w, p1.bzr, p1.r, p1.rbh, True)  # [B, 128]
+    return out.astype(jnp.float32)
 
 
 @functools.partial(jax.jit, static_argnames=("dtype",))

@@ -1,18 +1,18 @@
 """Product quantization: codebook training, encoding, ADC distances.
 
-TPU-native rebuild of the reference's FAISS IndexHNSWPQ quantization layer
+Rebuild of the reference's FAISS IndexHNSWPQ quantization layer
 (src/hnswpq/index.cpp:86-193): M_pq sub-vectors x 2^nbits centroids trained by
 k-means on an evenly-sampled training set (SAMPLE_RATE = 0.5,
 create_training_set index.cpp:57-84), vectors encoded to M_pq uint8 codes,
 query-time distances via asymmetric distance computation (ADC) lookup tables.
 
-TPU design:
+Device design:
   * Training runs ALL subquantizers as one batched k-means: data [m, n, dsub]
     against centroids [m, ksub, dsub]; the assignment step is one batched
-    matmul (MXU), the update one segment-sum.
+    matmul, the update one segment-sum.
   * ADC scanning: the production form is reconstruct-then-int8-scan (ADC
     distance to the PQ reconstruction == exact L2 to the reconstructed
-    vector) — see PQInt8Codebook below and the fused kernel in
+    vector) — see PQInt8Codebook below and the windowed scan in
     ops/scan_kernel.py / the chunked oracle in index/pq_flat.py.  The
     historical forms kept here for tests/HNSW-ADC: gather
     (T[q, m, codes[n, m]] summed over m) and one-hot-tables matmul
@@ -221,7 +221,7 @@ def codes_to_onehot(codes: jax.Array, ksub: int = 256) -> jax.Array:
 
 @jax.jit
 def adc_distances_onehot(tables: jax.Array, onehot: jax.Array) -> jax.Array:
-    """tables [Q, m, ksub], onehot [C, m*ksub] -> [Q, C] on the MXU.
+    """tables [Q, m, ksub], onehot [C, m*ksub] -> [Q, C] as one matmul.
 
     The one-hot is exact in bf16 and the table is cast to bf16; products are
     exact table entries, accumulated in fp32 — only the table's bf16 rounding
@@ -244,10 +244,10 @@ class PQInt8Codebook(NamedTuple):
     reconstructed vector, so instead of the one-hot-matmul over tables
     ([Q, m*ksub] — 256x FLOP inflation), the scan can reconstruct each code
     chunk on the fly and score it as a plain [Q, d] x [d, chunk] matmul —
-    16x fewer MXU FLOPs at m=8/ksub=256/d=128.  Quantizing the centroids to
+    16x fewer FLOPs at m=8/ksub=256/d=128.  Quantizing the centroids to
     int8 (one global scale; encoder outputs are tanh-bounded like INT8FLAT's)
-    makes the reconstruction exactly int8-valued, so the score matmul rides
-    the MXU's native int8 path with exact int32 arithmetic.
+    makes the reconstruction exactly int8-valued, so the score matmul runs
+    as int8 products with exact int32 arithmetic.
     """
 
     cent8: np.ndarray       # [m, ksub, dsub] int8
@@ -262,21 +262,6 @@ def quantize_codebook(codebook: PQCodebook) -> PQInt8Codebook:
     cent8 = np.clip(np.round(cent / scale), -127, 127).astype(np.int8)
     cn = np.sum(cent8.astype(np.int32) ** 2, axis=-1, dtype=np.int32)
     return PQInt8Codebook(cent8, scale, cn)
-
-
-def cent8_block_diag(cent8: np.ndarray) -> np.ndarray:
-    """[m, ksub, dsub] int8 -> [m*ksub, m*dsub] fp32 block-diagonal decoder.
-
-    onehot(codes) @ this = the int8 reconstruction, EXACTLY: each output
-    element is a single 1.0 x int8-value product (int8 values are exact in
-    bf16, products exact in the fp32 accumulator), so the fp32 result casts
-    to int8 losslessly inside the scan kernel.
-    """
-    m, ksub, dsub = cent8.shape
-    flat = np.zeros((m * ksub, m * dsub), np.float32)
-    for j in range(m):
-        flat[j * ksub : (j + 1) * ksub, j * dsub : (j + 1) * dsub] = cent8[j]
-    return flat
 
 
 def recon_norms(codes: np.ndarray, cent_norms: np.ndarray) -> np.ndarray:

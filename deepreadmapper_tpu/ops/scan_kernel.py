@@ -1,37 +1,34 @@
-"""Fused exhaustive-scan kernels: matmul + windowed top-1 in VMEM.
+"""Windowed-min exhaustive int8 scan for INT8FLAT and PQFLAT on the GPU.
 
-The INT8FLAT / PQFLAT scans were HBM-bound, not FLOP-bound: the [Q, chunk]
-int32 score tensor (4-9 GB per chunk) was materialized to HBM just so
-lax.approx_max_k could read it back — measured 469 ms for Q=8192 x N=2M
-versus 48 ms for the same matmul with a fused reduction (10x headroom).
+An exhaustive scan that keeps every score writes a [Q, chunk] score tensor
+to device memory (8.6 GB in fp32 for Q=8192 x 2^18 rows) only to read it
+back for a top-k.  This scan instead reduces every W=128-row window of the
+score matrix to (min score, argmin row) as it is computed; the per-query
+top-k then runs on the W-times smaller [Q, chunk/W] window minima.
 
-These Pallas kernels never let scores leave VMEM: each (candidate-tile,
-query-tile) grid cell computes its score tile on the MXU and immediately
-reduces every W=128-row window to (min score, argmin row) on the VPU.  The
-HBM output is [N/W, Q] — 128x smaller than the score matrix — and the final
-per-query top-k runs on that reduced array.
+One contract, two implementations:
 
-Layout rules learned the hard way (TPU arrays tile as (sublane=8, lane=128);
-narrow trailing dims are PADDED to 128 lanes):
-  * PQ codes live TRANSPOSED, [m, N] int32 — a [N, m] array would occupy
-    128/m times its logical size (20 GB for 40M rows) and OOM the chip.
-  * Row norms are never stored: each kernel recomputes ||row||^2 from its
-    (reconstructed) candidate tile once per tile — exact in fp32 (< 2^21)
-    — and folds the pad/ntotal mask into that per-tile norm column, so no
-    [N, 1] array (which would also pad 128x) exists at all.
-  * The PQ one-hot is built transposed, [ksub, CT], by comparing a sublane
-    iota against the code row broadcast over sublanes; the decoder matmul
-    then contracts over sublanes on both sides, so candidates land back on
-    sublanes for the score matmul with zero in-kernel transposes.
+* ``winmin_kernel`` — Pallas through Triton.  One block per (query tile,
+  candidate tile): the block holds its [QT, D] int8 queries, walks its
+  candidate tile one window at a time (int8 x int8 -> int32 tensor-core
+  product of [QT, D] x [D, W]), and keeps only each window's min/argmin in
+  the epilogue.  Scores never reach device memory.
+* ``winmin_xla`` — the plain version XLA compiles: int8 ``dot_general``,
+  reshape, min/argmin.  It is the reference the tests and the card's
+  timing compare the kernel with; the kernel won on the H100 (PERF.md),
+  so the engines run the kernel.
+
+Numerics: every term is an exact integer (int8 products accumulate in
+int32, |score| < 2^24) carried in fp32, so at ratio == 1 ordering equals
+int32 ordering and both implementations agree bit for bit.  Scores are
+(rn - 2r q.r) with r = sq/sc, the query/code quantization-scale ratio; the
+caller adds the per-query norm term afterwards (constant per query).
 
 Approximation: one candidate per W-row window.  With k=128 drawn from
-N/W >= 16k windows the expected loss is ~C(k,2)/(N/W) candidates (<0.5% at
-N=2M), tighter than the approx_max_k(recall_target=0.95) it replaces.
+N/W >= 2048 windows the expected loss is ~C(k,2)/(N/W) candidates.
 
-Numerics: all arithmetic is exact — int8 values are exact in bf16, products
-are exact in the fp32 MXU accumulator, and |scores| < 2^24 so fp32 ordering
-equals int32 ordering.  Scores are (rn - 2 q.r); the query norm is added by
-the caller after the merge (constant per query, does not affect ordering).
+PQFLAT runs the same scan: each chunk's int8 rows are reconstructed in XLA
+by a gather from the int8 codebook, then scored like INT8FLAT codes.
 
 Reference scoring being replaced: FAISS IndexHNSWPQ ADC
 (src/hnswpq/search.cpp:6-57) and the exhaustive oracle
@@ -45,30 +42,33 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plt
 
-QT = 512      # query-tile (lanes of the score tile)
-CT = 4096     # candidate rows per tile (sublanes of the score tile)
-W = 128       # default reduction window: one (min, argmin) survivor per W
-              # rows; W=512 shrinks the selection stage 4x at ~1.5% recall
-              # cost at N=2M (collision probability ~k^2/(2*N/W))
+from deepreadmapper_tpu.ops.platform import use_kernels
+
+QT = 128      # queries per block
+W = 128       # rows per window: one (min, argmin) survivor per W rows
+NWB = 8       # windows per block
+CT = W * NWB  # candidate rows per block
+NUM_WARPS = 8
 _BIG = 3.4e38
 
-MIN_FUSED_N = 1 << 18  # below this the scan is fast anyway; NW must exceed k
+MIN_FUSED_N = 1 << 18  # below this the plain scan is fast anyway; NW must exceed k
 _PAD_BASE = 1 << 18    # pad codes to this multiple so chunks divide evenly
-_MAX_CHUNK_UNITS = 8   # chunk <= 8 * 2^18 = 2^21 rows (1 GB of window output)
+# chunk rows per pass: the kernel's output is [Q, chunk/W] (1 GB of window
+# minima at Q=8192 x 2^21 rows); the XLA version materializes [Q, chunk]
+# int32 scores, so it takes 2^17 rows (4.3 GB at Q=8192)
+_MAX_CHUNK_UNITS = 8
+XLA_CHUNK = 1 << 17
 
 
-def use_fused_scan() -> bool:
-    return jax.default_backend() == "tpu"
-
-
-def can_fuse(n: int, n_padded: int, k: int) -> bool:
-    """The single fused-scan eligibility predicate: TPU backend, enough
-    rows for the window reduction to make sense (and NW >= k), padding laid
-    out on the fused grid, and k within one chunk's window count."""
+def can_fuse(n: int, n_padded: int, k: int, platform: str | None = None) -> bool:
+    """The windowed scan's eligibility predicate: a kernel platform, enough
+    rows for the window reduction to make sense (and NW >= k), and padding
+    laid out on the chunk grid.  Elsewhere the engines run their plain
+    per-chunk top-k scan."""
     return (
-        use_fused_scan()
+        use_kernels(platform)
         and n >= MIN_FUSED_N
         and n_padded % _PAD_BASE == 0
         and k <= _PAD_BASE // W
@@ -79,16 +79,16 @@ def query_scale_ratio_jnp(q, code_scale):
     """Device twin of index.int8_flat.query_scale_ratio: clip-free query
     quantization scale + the sq/sc ratio folded into the scan score
     (shared by every sharded body)."""
-    import jax.numpy as jnp
-
     sq = jnp.maximum(code_scale, jnp.max(jnp.abs(q)) / 127.0)
     return sq, sq / code_scale
 
 
-def choose_chunk(np_: int) -> int:
-    """Largest chunk that divides np_ (a _PAD_BASE multiple), is a multiple
-    of _PAD_BASE, and stays <= 2^21 rows (bounds the [chunk/W, Q] output at
-    ~1 GB per pass)."""
+def choose_chunk(np_: int, impl: str = "kernel") -> int:
+    """Rows per pass.  Kernel: the largest multiple of _PAD_BASE that divides
+    np_ (a _PAD_BASE multiple) within _MAX_CHUNK_UNITS units.  XLA: the
+    fixed XLA_CHUNK, which divides every _PAD_BASE multiple."""
+    if impl == "xla":
+        return XLA_CHUNK
     units = np_ // _PAD_BASE
     for d in range(min(_MAX_CHUNK_UNITS, units), 0, -1):
         if units % d == 0:
@@ -96,227 +96,159 @@ def choose_chunk(np_: int) -> int:
     return _PAD_BASE
 
 
-def _winmin(s: jax.Array, ct_idx, w: int) -> tuple[jax.Array, jax.Array]:
-    """[CT, QT] scores -> per-w-window (min [CT/w, QT], global argmin)."""
-    ct, qt = s.shape
-    s3 = s.reshape(ct // w, w, qt)
-    vmin = jnp.min(s3, axis=1)
-    widx = jax.lax.broadcasted_iota(jnp.int32, (ct // w, w, qt), 1)
-    amin = jnp.min(jnp.where(s3 == vmin[:, None, :], widx, 2**30), axis=1)
-    base = ct_idx * ct + jax.lax.broadcasted_iota(
-        jnp.int32, (ct // w, qt), 0
-    ) * w
-    return vmin, base + amin
+# ------------------------------------------------------------ plain XLA
 
 
-def _int8_kernel(nt_ref, rat_ref, q_ref, r_ref, vals_ref, args_ref, rbf_ref,
-                 rn_ref, *, w: int):
-    """q_ref [D, QT] bf16, r_ref [CT, D] int8; per-tile scratch: rbf
-    (bf16 candidate tile) and rn ([CT, 1] fp32 = row norms with the
-    pad/ntotal mask folded in as +inf).  rat_ref holds 2*sq/sc — the query/
-    code quantization-scale ratio folded into the dot term so queries may
-    quantize with their own (clip-free) scale; 2.0 when scales match."""
-    c_idx = pl.program_id(0)
-
-    @pl.when(pl.program_id(1) == 0)
-    def _():
-        rbf = r_ref[...].astype(jnp.bfloat16)  # int8 values exact in bf16
-        rbf_ref[...] = rbf
-        rf = rbf.astype(jnp.float32)
-        rn = jnp.sum(rf * rf, axis=1, keepdims=True)  # exact: ints < 2^21
-        row = c_idx * r_ref.shape[0] + jax.lax.broadcasted_iota(
-            jnp.int32, (r_ref.shape[0], 1), 0
-        )
-        rn_ref[...] = jnp.where(row < nt_ref[0, 0], rn, _BIG)
-
+def winmin_xla(q8, r8, ntotal, ratio2, w: int = W):
+    """q8 [Qp, D] int8, r8 [Np, D] int8, ntotal (rows at or beyond it never
+    win), ratio2 = 2*sq/sc -> (vals [Qp, Np/w] f32, args [Qp, Np/w] int32)."""
+    qp = q8.shape[0]
+    n = r8.shape[0]
     dot = jax.lax.dot_general(
-        rbf_ref[...], q_ref[...],
-        dimension_numbers=(((1,), (0,)), ((), ())),
-        preferred_element_type=jnp.float32,
-    )  # [CT, QT] exact
-    s = rn_ref[...] - rat_ref[0, 0] * dot
-    vmin, amin = _winmin(s, c_idx, w)
-    vals_ref[...] = vmin
-    args_ref[...] = amin
+        q8, r8, dimension_numbers=(((1,), (1,)), ((), ())),
+        preferred_element_type=jnp.int32,
+    )  # [Qp, Np] exact
+    ri = r8.astype(jnp.int32)
+    rn = jnp.sum(ri * ri, axis=1).astype(jnp.float32)
+    rn = jnp.where(jnp.arange(n, dtype=jnp.int32) < ntotal, rn, _BIG)
+    s = (rn[None, :] - ratio2 * dot.astype(jnp.float32)).reshape(
+        qp, n // w, w
+    )
+    vals = jnp.min(s, axis=-1)
+    args = jnp.argmin(s, axis=-1).astype(jnp.int32) + (
+        jnp.arange(n // w, dtype=jnp.int32) * w
+    )[None, :]
+    return vals, args
 
 
-def _pq_kernel(nt_ref, rat_ref, q_ref, codes_ref, cent_ref, vals_ref,
-               args_ref, recon_ref, rn_ref, *, w: int):
-    """PQ variant: reconstruct the candidate tile from its codes in VMEM.
-
-    codes_ref [m, CT] int32 (transposed storage), cent_ref [m*ksub, dsub]
-    bf16 (int8-valued).  Reconstruction runs once per candidate tile into
-    recon_ref [D, CT] (transposed: the one-hot is built as [ksub, CT] so no
-    big in-kernel transposes are needed); the lane-major norms relayout to a
-    [CT, 1] column once per tile.
-    """
-    m, ct = codes_ref.shape
-    ksub = cent_ref.shape[0] // m
-    dsub = cent_ref.shape[1]
-    c_idx = pl.program_id(0)
-
-    @pl.when(pl.program_id(1) == 0)
-    def _():
-        for j in range(m):
-            cj = codes_ref[j : j + 1, :]  # [1, CT] int32
-            oh_t = (
-                jax.lax.broadcasted_iota(jnp.int32, (ksub, ct), 0) == cj
-            ).astype(jnp.bfloat16)  # [ksub, CT]
-            part = jax.lax.dot_general(
-                cent_ref[j * ksub : (j + 1) * ksub, :], oh_t,
-                dimension_numbers=(((0,), (0,)), ((), ())),
-                preferred_element_type=jnp.float32,
-            )  # [dsub, CT] exact int8-valued
-            recon_ref[j * dsub : (j + 1) * dsub, :] = part.astype(jnp.bfloat16)
-        rf = recon_ref[...].astype(jnp.float32)  # [D, CT]
-        rn_row = jnp.sum(rf * rf, axis=0, keepdims=True)  # [1, CT] exact
-        col = c_idx * ct + jax.lax.broadcasted_iota(jnp.int32, (1, ct), 1)
-        rn_row = jnp.where(col < nt_ref[0, 0], rn_row, _BIG)
-        rn_ref[...] = rn_row.T  # [CT, 1]
-
-    dot = jax.lax.dot_general(
-        recon_ref[...], q_ref[...],
-        dimension_numbers=(((0,), (0,)), ((), ())),
-        preferred_element_type=jnp.float32,
-    )  # [CT, QT]
-    s = rn_ref[...] - rat_ref[0, 0] * dot
-    vmin, amin = _winmin(s, c_idx, w)
-    vals_ref[...] = vmin
-    args_ref[...] = amin
+# ------------------------------------------------------------ Triton kernel
 
 
-@functools.partial(jax.jit, static_argnames=("w", "interpret"))
-def _int8_winmin_call(qt_b, r8, ntotal, ratio2=2.0, w: int = W,
-                      interpret: bool = False):
-    """qt_b [D, Qp] bf16 (queries pre-transposed: the MXU consumes the rhs
-    as [K, N] directly), r8 [Np, D] int8, ntotal scalar int32 (rows at or
-    beyond it never win) -> (vals [Np/W, Qp] f32, args [Np/W, Qp] int32)."""
-    d, qp = qt_b.shape
+def _winmin_kernel(nt_ref, rat_ref, q_ref, r_ref, vals_ref, args_ref, *,
+                   w: int, nwb: int):
+    """q_ref [QT, D] int8, r_ref [w*nwb, D] int8 -> vals/args [QT, nwb]."""
+    c = pl.program_id(1)
+    ct = w * nwb
+    qt = q_ref.shape[0]
+    q = q_ref[...]
+    nt = nt_ref[0]
+    rat2 = rat_ref[0]
+    col = jax.lax.broadcasted_iota(jnp.int32, (qt, nwb), 1)
+
+    def window(j, carry):
+        vacc, aacc = carry
+        r = r_ref[pl.ds(j * w, w), :]  # [w, D] int8
+        dot = jax.lax.dot_general(
+            q, r, dimension_numbers=(((1,), (1,)), ((), ())),
+            preferred_element_type=jnp.int32,
+        )  # [QT, w] int32, exact
+        ri = r.astype(jnp.int32)
+        rn = jnp.sum(ri * ri, axis=1)  # [w] exact
+        base = c * ct + j * w
+        row = base + jax.lax.broadcasted_iota(jnp.int32, (w,), 0)
+        rnf = jnp.where(row < nt, rn.astype(jnp.float32), _BIG)
+        s = rnf[None, :] - rat2 * dot.astype(jnp.float32)
+        vmin = jnp.min(s, axis=1)
+        amin = jnp.argmin(s, axis=1).astype(jnp.int32) + base
+        vacc = jnp.where(col == j, vmin[:, None], vacc)
+        aacc = jnp.where(col == j, amin[:, None], aacc)
+        return vacc, aacc
+
+    init = (
+        jnp.full((qt, nwb), _BIG, jnp.float32),
+        jnp.zeros((qt, nwb), jnp.int32),
+    )
+    vacc, aacc = jax.lax.fori_loop(0, nwb, window, init)
+    vals_ref[...] = vacc
+    args_ref[...] = aacc
+
+
+@functools.partial(jax.jit, static_argnames=("w", "nwb", "interpret"))
+def winmin_kernel(q8, r8, ntotal, ratio2, w: int = W, nwb: int = NWB,
+                  interpret: bool = False):
+    """Same contract as winmin_xla; Qp % QT == 0 and Np % (w*nwb) == 0."""
+    qp, d = q8.shape
     np_ = r8.shape[0]
-    grid = (np_ // CT, qp // QT)
+    ct = w * nwb
     return pl.pallas_call(
-        functools.partial(_int8_kernel, w=w),
-        grid=grid,
+        functools.partial(_winmin_kernel, w=w, nwb=nwb),
+        grid=(qp // QT, np_ // ct),
         in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec((d, QT), lambda c, q: (0, q), memory_space=pltpu.VMEM),
-            pl.BlockSpec((CT, d), lambda c, q: (c, 0), memory_space=pltpu.VMEM),
+            pl.BlockSpec((1,), lambda i, c: (0,)),
+            pl.BlockSpec((1,), lambda i, c: (0,)),
+            pl.BlockSpec((QT, d), lambda i, c: (i, 0)),
+            pl.BlockSpec((ct, d), lambda i, c: (c, 0)),
         ],
         out_specs=[
-            pl.BlockSpec((CT // w, QT), lambda c, q: (c, q), memory_space=pltpu.VMEM),
-            pl.BlockSpec((CT // w, QT), lambda c, q: (c, q), memory_space=pltpu.VMEM),
+            pl.BlockSpec((QT, nwb), lambda i, c: (i, c)),
+            pl.BlockSpec((QT, nwb), lambda i, c: (i, c)),
         ],
         out_shape=[
-            jax.ShapeDtypeStruct((np_ // w, qp), jnp.float32),
-            jax.ShapeDtypeStruct((np_ // w, qp), jnp.int32),
+            jax.ShapeDtypeStruct((qp, np_ // w), jnp.float32),
+            jax.ShapeDtypeStruct((qp, np_ // w), jnp.int32),
         ],
-        scratch_shapes=[
-            pltpu.VMEM((CT, d), jnp.bfloat16),
-            pltpu.VMEM((CT, 1), jnp.float32),
-        ],
+        backend="triton",
+        compiler_params=plt.CompilerParams(num_warps=NUM_WARPS,
+                                           num_stages=2),
         interpret=interpret,
+        name="int8_winmin",
     )(
-        jnp.asarray(ntotal, jnp.int32).reshape(1, 1),
-        jnp.asarray(ratio2, jnp.float32).reshape(1, 1),
-        qt_b,
+        jnp.asarray(ntotal, jnp.int32).reshape(1),
+        jnp.asarray(ratio2, jnp.float32).reshape(1),
+        q8,
         r8,
     )
 
 
-@functools.partial(jax.jit, static_argnames=("w", "interpret"))
-def _pq_winmin_call(qt_b, codes_t, ntotal, cent2d, ratio2=2.0, w: int = W,
-                    interpret: bool = False):
-    """qt_b [D, Qp] bf16 (pre-transposed), codes_t [m, Np] int32 (transposed
-    storage — lane-dense), cent2d [m*ksub, dsub] bf16 -> (vals, args)."""
-    d, qp = qt_b.shape
-    m, np_ = codes_t.shape
-    grid = (np_ // CT, qp // QT)
-    return pl.pallas_call(
-        functools.partial(_pq_kernel, w=w),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec((d, QT), lambda c, q: (0, q), memory_space=pltpu.VMEM),
-            pl.BlockSpec((m, CT), lambda c, q: (0, c), memory_space=pltpu.VMEM),
-            pl.BlockSpec(cent2d.shape, lambda c, q: (0, 0), memory_space=pltpu.VMEM),
-        ],
-        out_specs=[
-            pl.BlockSpec((CT // w, QT), lambda c, q: (c, q), memory_space=pltpu.VMEM),
-            pl.BlockSpec((CT // w, QT), lambda c, q: (c, q), memory_space=pltpu.VMEM),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((np_ // w, qp), jnp.float32),
-            jax.ShapeDtypeStruct((np_ // w, qp), jnp.int32),
-        ],
-        scratch_shapes=[
-            pltpu.VMEM((d, CT), jnp.bfloat16),
-            pltpu.VMEM((CT, 1), jnp.float32),
-        ],
-        interpret=interpret,
-    )(
-        jnp.asarray(ntotal, jnp.int32).reshape(1, 1),
-        jnp.asarray(ratio2, jnp.float32).reshape(1, 1),
-        qt_b,
-        codes_t,
-        cent2d,
-    )
+# ------------------------------------------------------------ chunked scan
+
+
+def reconstruct_pq(codes, cent8):
+    """PQ codes [n, m] uint8 + int8 codebook [m, ksub, dsub] -> int8 rows
+    [n, m*dsub] (an XLA gather; exact)."""
+    n, m = codes.shape
+    parts = cent8[jnp.arange(m)[None, :], codes.astype(jnp.int32)]
+    return parts.reshape(n, m * cent8.shape[2])
 
 
 @functools.partial(
-    jax.jit, static_argnames=("k", "chunk", "kind", "w", "exact", "interpret")
+    jax.jit, static_argnames=("k", "chunk", "kind", "impl", "interpret")
 )
-def fused_scan_topk(qt_b, store, ntotal, k: int, chunk: int,
-                    kind: str = "int8", cent2d=None, ratio=1.0, w: int = W,
-                    exact: bool = False, interpret: bool = False):
-    """Chunked fused scan with exact cross-chunk merge.
+def fused_scan_topk(q8, store, ntotal, k: int, chunk: int,
+                    kind: str = "int8", cent8=None, ratio=1.0,
+                    impl: str = "kernel", interpret: bool = False):
+    """Chunked windowed-min scan with exact cross-chunk merge.
 
-    qt_b [D, Qp] bf16, queries pre-transposed (Qp % QT == 0); store =
-    r8 [Np, D] int8 (kind='int8') or codes_t [m, Np] int32 (kind='pq', with
-    cent2d [m*ksub, dsub] bf16); ntotal = count of real rows (the rest is
-    padding, masked inside the kernel); Np % chunk == 0, chunk % CT == 0.
-    Returns (scores [Qp, k] f32 = rn - 2 q.r ascending — caller adds the
-    query norm — and ids [Qp, k] int32; all-padding windows surface as _BIG
-    scores).  exact=True uses a full top_k over the window minima (measured
-    100 ms vs approx_max_k's 22 ms on [8192, 16384]); the window reduction
-    itself is the main approximation either way.
-    """
-    qp = qt_b.shape[1]
-    np_ = store.shape[0] if kind == "int8" else store.shape[1]
+    q8 [Qp, D] int8 (Qp % QT == 0); store = r8 [Np, D] int8 (kind='int8')
+    or PQ codes [Np, m] uint8 (kind='pq', with cent8 [m, ksub, dsub] int8);
+    ntotal = count of real rows (the rest is padding, masked inside the
+    scan); Np % chunk == 0, chunk % CT == 0.  Returns (scores [Qp, k] f32 =
+    rn - 2r q.r ascending — caller adds the query norm — and ids [Qp, k]
+    int32; all-padding windows surface as _BIG scores)."""
+    qp = q8.shape[0]
+    np_ = store.shape[0]
     n_chunks = np_ // chunk
     nt = jnp.asarray(ntotal, jnp.int32)
     ratio2 = 2.0 * jnp.asarray(ratio, jnp.float32)
 
     def one_chunk(st, nt_c, c_idx):
-        if kind == "int8":
-            vals, args = _int8_winmin_call(qt_b, st, nt_c, ratio2, w, interpret)
+        r8 = reconstruct_pq(st, cent8) if kind == "pq" else st
+        if impl == "kernel":
+            vals, args = winmin_kernel(q8, r8, nt_c, ratio2,
+                                       interpret=interpret)
         else:
-            vals, args = _pq_winmin_call(
-                qt_b, st, nt_c, cent2d, ratio2, w, interpret
-            )
-        # [chunk/W, Qp] -> [Qp, chunk/W]; 128x smaller than the score matrix
-        vals_t = vals.T
-        args_t = args.T + c_idx * chunk
-        if exact:
-            nd, pos = jax.lax.top_k(-vals_t, k)
-        else:
-            nd, pos = jax.lax.approx_max_k(-vals_t, k, recall_target=0.95)
-        return -nd, jnp.take_along_axis(args_t, pos, axis=1)
+            vals, args = winmin_xla(q8, r8, nt_c, ratio2)
+        nd, pos = jax.lax.top_k(-vals, k)
+        return -nd, jnp.take_along_axis(args, pos, axis=1) + c_idx * chunk
 
     if n_chunks == 1:
         return one_chunk(store, nt, jnp.int32(0))
 
     def step(carry, c_idx):
         best_d, best_i = carry
-        if kind == "int8":
-            st = jax.lax.dynamic_slice(
-                store, (c_idx * chunk, 0), (chunk, store.shape[1])
-            )
-        else:
-            st = jax.lax.dynamic_slice(
-                store, (0, c_idx * chunk), (store.shape[0], chunk)
-            )
+        st = jax.lax.dynamic_slice(
+            store, (c_idx * chunk, 0), (chunk, store.shape[1])
+        )
         d, i = one_chunk(st, nt - c_idx * chunk, c_idx)
         cat_d = jnp.concatenate([best_d, d], axis=1)
         cat_i = jnp.concatenate([best_i, i], axis=1)
@@ -333,7 +265,7 @@ def fused_scan_topk(qt_b, store, ntotal, k: int, chunk: int,
     return d, i
 
 
-def pad_rows(n: int, chunk: int) -> int:
-    """Rows of padding needed for the fused path (callers pass chunk with
-    chunk % CT == 0; W divides CT)."""
-    return (-n) % chunk
+def pad_queries(nq: int, q_batch: int) -> int:
+    """Query rows per device call: the batch itself when it is the whole
+    request, else the request padded to a QT multiple."""
+    return q_batch if nq > q_batch else nq + (-nq) % QT

@@ -5,11 +5,10 @@ match +1, mismatch -1, linear gap -1, score = max DP cell, comparing RAW bytes
 (the reference scores '<'-wrapped queries against unwrapped candidates, so the
 wrap characters simply mismatch; we reproduce that).
 
-TPU formulation: the per-pair O(m*n) DP has a sequential chain along rows and
+Formulation: the per-pair O(m*n) DP has a sequential chain along rows and
 columns but every cell on an anti-diagonal d = i + j is independent.  We scan
 over the 2L-1 anti-diagonals carrying two diagonal vectors, vectorized over
-BOTH the diagonal axis and a large batch-of-pairs axis — the pairs axis maps
-onto the 128-wide VPU lanes.  No masking is required: rows are padded with
+BOTH the diagonal axis and a large batch-of-pairs axis.  No masking is required: rows are padded with
 sentinel byte 254 and columns with 255, which can never match anything, so
 ghost cells outside the true m x n region provably stay at 0 (exactly the SW
 border condition) and never affect the running max.

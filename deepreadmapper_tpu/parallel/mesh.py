@@ -3,14 +3,14 @@
 The framework's parallelism (SURVEY.md §2.7, §5) is:
 
   * 'data'  — batch-axis data parallelism over reads (embedding, training,
-              rerank); the TPU replacement for the reference's OpenMP
+              rerank); the replacement for the reference's OpenMP
               per-query loops and OpenVINO request pipelining.
   * 'shard' — index sharding: reference vectors / PQ codes partitioned
               across devices; per-shard top-k then all-gather + global
               top-k merge (the multi-host dimension the reference lacks).
 
-On a pod slice 'data' x 'shard' should map to ICI; jax.distributed extends
-the same mesh across hosts over DCN.
+On one host the cards are joined all to all (NVLink), so the mesh follows
+the algorithm alone; jax.distributed extends the same mesh across hosts.
 """
 
 from __future__ import annotations

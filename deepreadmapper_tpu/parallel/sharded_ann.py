@@ -7,7 +7,7 @@ a contiguous slice of the vectors (graph + codes/vectors + its own PQ
 codebook, like one FAISS IndexHNSWPQ per host).  Search runs the batched beam
 search (index/hnsw.py) on every shard in lockstep under shard_map, localizes
 ids to the global space by the shard's row offset, and merges with
-all_gather + lax.top_k — the collectives ride ICI, no NCCL analog.
+all_gather + lax.top_k — XLA hands the collectives to NCCL on the GPU.
 
 Shards must execute ONE program, so per-shard graphs are padded to common
 shapes: gids pad with n_local (sorted-tail sentinel, unreachable) and
@@ -40,16 +40,14 @@ from deepreadmapper_tpu.index.ivf_pq import (
 from deepreadmapper_tpu.index.registry import _REGISTRY
 from deepreadmapper_tpu.ops import pq as pq_ops
 from deepreadmapper_tpu.ops import scan_kernel as sk
+from deepreadmapper_tpu.ops.platform import use_kernels
 
-# fold-mode threshold for the sharded IVF scan bodies (per-shard query
-# count): below this the packed-output merge is cheaper (see
-# IVFInt8Index._FOLD_MIN_Q); module-level so tests can patch it
-IVF_FOLD_MIN_Q = 4096
-
-# per-shard scan chunks: bound the [Q_local, chunk] score tensors
+# per-shard int8 padding unit (a _PAD_BASE multiple, so the windowed scan
+# applies) and the plain scan's chunk: XLA's GPU backend refuses a k=128
+# top_k over [8192, 2^18] scores
 _INT8_CHUNK = 262144
+_SCAN_CHUNK = 131072
 _Q_SUPER_PER_DATA = 8192  # queries per data-axis position per device call
-_PQ_CHUNK = 131072  # ADC also materializes a [chunk, m*ksub] one-hot
 
 
 def read_manifest(index_prefix: str) -> dict:
@@ -185,15 +183,6 @@ class ShardedANNIndex:
 
     # -------------------------------------------------------------- device
 
-    def _ivf_kernel_ok(self) -> bool:
-        """Pallas slab-scan eligibility for the sharded IVF kinds: TPU (or
-        interpret-forced) backend + KP-tiled slab capacity.  Backend and cap
-        are identical on every process, so the decision is globally
-        consistent (no collective needed)."""
-        from deepreadmapper_tpu.ops import ivf_kernel as ik
-
-        return ik.use_kernel() and self.subs[0].cap % ik.KP == 0
-
     def _global_max(self, v: int) -> int:
         """Max of a per-process host scalar across processes (identity in
         single-controller mode).  Multi-process SPMD needs one shape
@@ -233,31 +222,15 @@ class ShardedANNIndex:
             stack = np.stack([s.codes for s in self.subs])
             base = sk._PAD_BASE if self.n_local >= sk._PAD_BASE else sk.CT
             pad = (-self.n_local) % min(base, max(self.n_local, 1))
-            if pad:  # pad so the per-shard ADC scan can chunk (rows masked)
+            if pad:  # pad so the per-shard scan can chunk (rows masked)
                 stack = np.pad(stack, ((0, 0), (0, pad), (0, 0)))
-            # transposed [S, m, Np]: a [Np, m] device array lane-pads 16x
-            codes = self._put(
-                np.swapaxes(stack, 1, 2).astype(np.int32),
-                "shard", None, None,
-            )
+            codes = self._put(stack, "shard", None, None)  # [S, Np, m] u8
             # Reconstruct-then-int8-scan per shard: each shard carries its
-            # own codebook; shards merge in fp32 squared-L2 (d * scale^2).
-            # Row norms + block-diag decoders (non-fused scan only) build
-            # lazily in _pq_oracle_dev — the fused kernel never reads them,
-            # and the padded host stack is NOT cached (it would double host
-            # RAM for the code store at genome scale; the subs keep their
-            # own codes and the oracle path rebuilds it on first use).
-            cent2ds = jnp.asarray(
-                self._put(
-                    np.stack(
-                        [
-                            s.cb8.cent8.reshape(-1, s.cb8.cent8.shape[-1])
-                            for s in self.subs
-                        ]
-                    ).astype(np.float32),
-                    "shard", None, None,
-                ),
-                jnp.bfloat16,
+            # own int8 codebook; shards merge in fp32 squared-L2
+            # (d * scale^2).
+            cent8s = self._put(
+                np.stack([s.cb8.cent8 for s in self.subs]),
+                "shard", None, None, None,
             )
             scales = self._put(
                 np.array([s.cb8.scale for s in self.subs], np.float32),
@@ -274,7 +247,7 @@ class ShardedANNIndex:
             )
             self._dev = (
                 None, (), None, codes,
-                (None, None, scales, cent2ds, rots),
+                (None, None, scales, cent8s, rots),
             )
             return self._dev
         if self.kind == "ivfint8":
@@ -300,14 +273,11 @@ class ShardedANNIndex:
             d = self.subs[0].codes_cm.shape[1]
             s_cnt = len(self.subs)
             max_slabs = self._global_max(max(s.n_slabs for s in self.subs))
-            use_k = self._ivf_kernel_ok()
             space = (max_slabs + 1) * cap
-            if not use_k and space >= _INT8_CHUNK:
+            if space >= _INT8_CHUNK:
                 # round up to _row_norms' chunk so the norm pass stays
-                # chunked (whole-matrix int32 cast = 8x transient HBM at
-                # genome scale); the extra rows are plain empty slots.
-                # (The kernel form is fill-aware chunked and computes norms
-                # per chunk instead.)
+                # chunked (a whole-matrix int32 cast needs 4x the codes'
+                # memory transiently); the extra rows are plain empty slots
                 space += (-space) % _INT8_CHUNK
             cmax = self._global_max(
                 max(s.centroids.shape[0] for s in self.subs)
@@ -318,50 +288,21 @@ class ShardedANNIndex:
                 c = sub.centroids.shape[0]
                 cent_np[si, :c] = sub.centroids
                 cmask_np[si, :c] = True
-            if use_k:
-                # FILL-AWARE CHUNKED layout (ops/ivf_kernel.py) per shard,
-                # padded to a common chunk count (extra chunks all-empty);
-                # row ids live in CHUNK space — the kernel emits chunk-space
-                # candidates
-                from deepreadmapper_tpu.index.ivf_int8 import _slab_row_norms
-                from deepreadmapper_tpu.ops import ivf_kernel as ik
+            codes_np = np.zeros((s_cnt, space, d), np.int8)
+            rowid_np = np.full((s_cnt, space), -1, np.int32)
+            for si, sub in enumerate(self.subs):
+                rows = sub.codes_cm.shape[0]
+                codes_np[si, :rows] = sub.codes_cm
+                # local row ids fit int32 (per-shard row count is int32-
+                # bounded by build()); -1 marks empty slots
+                rowid_np[si, :rows] = sub.row_ids.astype(np.int32)
+            rowid = self._put(rowid_np, "shard", None)
+            from deepreadmapper_tpu.index.int8_flat import _row_norms
 
-                ntot_max = self._global_max(
-                    max(s._chunk_meta()[2] for s in self.subs)
-                )
-                codes_np = np.zeros(
-                    (s_cnt, ntot_max * ik.CHK, d), np.int8
-                )
-                rowid_np = np.full((s_cnt, ntot_max * ik.CHK), -1, np.int32)
-                for si, sub in enumerate(self.subs):
-                    cc, rid = sub._chunk_rows_host()
-                    codes_np[si, : cc.shape[0]] = cc
-                    rowid_np[si, : rid.shape[0]] = rid.astype(np.int32)
-                rowid = self._put(rowid_np, "shard", None)
-                codes = self._put(
-                    codes_np.reshape(s_cnt, ntot_max, ik.CHK, d),
-                    "shard", None, None, None,
-                )
-                rn = jnp.where(
-                    rowid.reshape(s_cnt, ntot_max, ik.CHK) >= 0,
-                    jax.vmap(_slab_row_norms)(codes), _IVF_BIGF,
-                )
-            else:
-                codes_np = np.zeros((s_cnt, space, d), np.int8)
-                rowid_np = np.full((s_cnt, space), -1, np.int32)
-                for si, sub in enumerate(self.subs):
-                    rows = sub.codes_cm.shape[0]
-                    codes_np[si, :rows] = sub.codes_cm
-                    # local row ids fit int32 (per-shard row count is int32-
-                    # bounded by build()); -1 marks empty slots
-                    rowid_np[si, :rows] = sub.row_ids.astype(np.int32)
-                rowid = self._put(rowid_np, "shard", None)
-                from deepreadmapper_tpu.index.int8_flat import _row_norms
-
-                codes = self._put(codes_np, "shard", None, None)
-                # eager SPMD ops over the sharded global arrays
-                rn = jnp.where(rowid >= 0,
-                               jax.vmap(_row_norms)(codes), _IVF_BIGF)
+            codes = self._put(codes_np, "shard", None, None)
+            # eager SPMD ops over the sharded global arrays
+            rn = jnp.where(rowid >= 0,
+                           jax.vmap(_row_norms)(codes), _IVF_BIGF)
             cent = self._put(cent_np, "shard", None, None)
             # centroid norms on DEVICE in fp32 — the same op the single-chip
             # engine runs, so probe ordering cannot diverge at rounding
@@ -413,48 +354,21 @@ class ShardedANNIndex:
                 c = sub.centroids.shape[0]
                 cent_np[si, :c] = sub.centroids
                 cmask_np[si, :c] = True
-            if self._ivf_kernel_ok():
-                # FILL-AWARE CHUNKED layout per shard, padded to a common
-                # chunk count (extra chunks: zero codes, +inf norms, -1
-                # ids); chunk-major 4D [S, n_chunks, mp, CHK]
-                from deepreadmapper_tpu.ops import ivf_kernel as ik
-
-                ntot_max = self._global_max(
-                    max(s._chunk_meta()[2] for s in self.subs)
+            packed_np = np.zeros((s_cnt, mp, space), np.int32)
+            rn_np = np.full((s_cnt, space), _IVF_BIGF, np.float32)
+            rowid_np = np.full((s_cnt, space), -1, np.int32)
+            for si, sub in enumerate(self.subs):
+                cols = sub.codes_cm.shape[0]
+                packed_np[si, :, :cols] = pack_codes_t(sub.codes_cm)
+                rn = pq_ops.recon_norms(
+                    sub.codes_cm, sub.cb8.cent_norms
+                ).astype(np.float32)
+                rn_np[si, :cols] = np.where(
+                    sub.row_ids >= 0, rn, _IVF_BIGF
                 )
-                packed_np = np.zeros(
-                    (s_cnt, ntot_max, mp, ik.CHK), np.int32
-                )
-                rn_np = np.full(
-                    (s_cnt, ntot_max, ik.CHK), _IVF_BIGF, np.float32
-                )
-                rowid_np = np.full((s_cnt, ntot_max * ik.CHK), -1, np.int32)
-                for si, sub in enumerate(self.subs):
-                    pc, rnc, ridc = sub._chunk_packed_host()
-                    ntot = pc.shape[1] // ik.CHK
-                    packed_np[si, :ntot] = np.ascontiguousarray(
-                        pc.reshape(mp, ntot, ik.CHK).transpose(1, 0, 2)
-                    )
-                    rn_np[si, :ntot] = rnc.reshape(ntot, ik.CHK)
-                    rowid_np[si, : ridc.shape[0]] = ridc.astype(np.int32)
-                codes = self._put(packed_np, "shard", None, None, None)
-                rn = self._put(rn_np, "shard", None, None)
-            else:
-                packed_np = np.zeros((s_cnt, mp, space), np.int32)
-                rn_np = np.full((s_cnt, space), _IVF_BIGF, np.float32)
-                rowid_np = np.full((s_cnt, space), -1, np.int32)
-                for si, sub in enumerate(self.subs):
-                    cols = sub.codes_cm.shape[0]
-                    packed_np[si, :, :cols] = pack_codes_t(sub.codes_cm)
-                    rn = pq_ops.recon_norms(
-                        sub.codes_cm, sub.cb8.cent_norms
-                    ).astype(np.float32)
-                    rn_np[si, :cols] = np.where(
-                        sub.row_ids >= 0, rn, _IVF_BIGF
-                    )
-                    rowid_np[si, :cols] = sub.row_ids.astype(np.int32)
-                codes = self._put(packed_np, "shard", None, None)
-                rn = self._put(rn_np, "shard", None)
+                rowid_np[si, :cols] = sub.row_ids.astype(np.int32)
+            codes = self._put(packed_np, "shard", None, None)
+            rn = self._put(rn_np, "shard", None)
             rowid = self._put(rowid_np, "shard", None)
             cent = self._put(cent_np, "shard", None, None)
             cn = jnp.where(self._put(cmask_np, "shard", None),
@@ -525,38 +439,6 @@ class ShardedANNIndex:
         self._dev = (neigh0, levels, entries, storage, cents)
         return self._dev
 
-    def _pq_oracle_dev(self):
-        """Per-shard row norms + block-diag decoders for the NON-fused PQ
-        scan, built on first use (host 8-pass gathers + a 4 B/row upload the
-        fused path never needs)."""
-        if getattr(self, "_pq_oracle", None) is None:
-            # Rebuild the padded stack from the subs (transient — dropped
-            # when this frame exits) instead of caching it in _device().
-            stack = np.stack([s.codes for s in self.subs])
-            base = sk._PAD_BASE if self.n_local >= sk._PAD_BASE else sk.CT
-            pad = (-self.n_local) % min(base, max(self.n_local, 1))
-            if pad:
-                stack = np.pad(stack, ((0, 0), (0, pad), (0, 0)))
-            rn_np = np.stack(
-                [
-                    pq_ops.recon_norms(c, s.cb8.cent_norms)
-                    for c, s in zip(stack, self.subs)
-                ]
-            )
-            rn = self._put(rn_np, "shard", None)
-            cent_flats = jnp.asarray(
-                self._put(
-                    np.stack(
-                        [pq_ops.cent8_block_diag(s.cb8.cent8)
-                         for s in self.subs]
-                    ),
-                    "shard", None, None,
-                ),
-                jnp.bfloat16,
-            )
-            self._pq_oracle = (rn, cent_flats)
-        return self._pq_oracle
-
     # ----------------------------------------------------------- ivf search
 
     def _ivf_probe_fn(self, nprobe: int, approx: bool = False):
@@ -612,15 +494,15 @@ class ShardedANNIndex:
         return fn
 
     def _ivf_scan_fn(self, k: int, k_local: int, kp: int, nprobe: int,
-                     s_pad: int, qb_local: int, v_pad: int = 0):
+                     s_pad: int, qb_local: int):
         """Per-shard probed-slab scan + slot->row mapping + global merge.
 
         The host-built plan arrays are sharded over BOTH mesh axes — every
-        (data position, shard) pair scans its own steps (fill-aware chunk
-        steps for the kernel path, (slab, query-tile) steps otherwise) —
-        and the merge is the same two-int32 all_gather used by every other
-        engine kind (local ROW ids, not slot ids, cross the collective)."""
-        key = ("ivf_scan", k, k_local, kp, nprobe, s_pad, qb_local, v_pad)
+        (data position, shard) pair scans its own (slab, query-tile) steps
+        — and the merge is the same two-int32 all_gather used by every
+        other engine kind (local ROW ids, not slot ids, cross the
+        collective)."""
+        key = ("ivf_scan", k, k_local, kp, nprobe, s_pad, qb_local)
         fn = self._fns.get(key)
         if fn is not None:
             return fn
@@ -628,38 +510,27 @@ class ShardedANNIndex:
         cap = self.subs[0].cap
         d_dim = self.subs[0].codes_cm.shape[1]
         merge = self._merge_fn(k)
-        use_kern = self._ivf_kernel_ok()
-        codes_spec = (
-            P("shard", None, None, None) if use_kern
-            else P("shard", None, None)
-        )
-        rn_spec = P("shard", None, None) if use_kern else P("shard", None)
 
         @functools.partial(
             jax.shard_map,
             mesh=mesh,
             in_specs=(
                 P("data", None),
-                codes_spec,                # codes stack (4D chunk-major for
-                                           # the kernel, flat otherwise)
-                rn_spec,                   # row norms
-                P("shard", None),          # -> local row ids (chunk space
-                                           # for the kernel, slab space else)
-                P("shard"),                # int8 scales
-                P("shard"),                # host-computed query scales
-                P("shard"),                # sq/sc ratios
-                P("data", "shard", None),          # step_cluster/chunk
-                P("data", "shard", None),          # step_visit (+sentinel)
-                P("data", "shard", None, None),    # visit query tiles
+                P("shard", None, None),            # slab-space codes
+                P("shard", None),                  # row norms
+                P("shard", None),                  # -> local row ids
+                P("shard"),                        # int8 scales
+                P("shard"),                        # host-computed q scales
+                P("shard"),                        # sq/sc ratios
+                P("data", "shard", None),          # step_cluster
+                P("data", "shard", None, None),    # step query tiles
                 P("data", "shard", None, None),    # (query, probe) -> slot
             ),
             out_specs=(P("data", None), P("data", None), P("data", None)),
             check_vma=False,
         )
         def body(q, codes_s, rn_s, rowid_s, scale_s, qscale_s, ratio_s,
-                 stepc_s, stepv_s, qidx_s, slot_s):
-            from deepreadmapper_tpu.ops import ivf_kernel as ik
-
+                 stepc_s, qidx_s, slot_s):
             s = scale_s[0]
             rat = ratio_s[0]
             q8f = jnp.round(q / qscale_s[0])
@@ -669,41 +540,16 @@ class ShardedANNIndex:
                 [q8f.astype(jnp.int8),
                  jnp.zeros((1, q.shape[1]), jnp.int8)]
             )
-            if use_kern and qb_local >= IVF_FOLD_MIN_Q \
-                    and k_local <= ik.FS * ik.KP:
-                # fold-mode scan: per-query accumulator in the kernel, no
-                # slot gather / wide approx_max_k (ops/ivf_kernel fold path)
-                qsteps = q8[qidx_s[0, 0]]
-                facc = ik.ivf_chunk_scan_int8_fold(
-                    stepc_s[0, 0], stepv_s[0, 0], qidx_s[0, 0], qsteps,
-                    codes_s[0], rn_s[0], 2.0 * rat, ik.CHK, qb_local,
-                    interpret=ik.INTERPRET,
-                )
-                d_cand, slots = ik.merge_fold(facc, qb_local, k_local)
-            elif use_kern:
-                qsteps = q8[qidx_s[0, 0]]  # [v_pad, QTK, D]
-                packed = ik.ivf_chunk_scan_int8(
-                    stepc_s[0, 0], stepv_s[0, 0], qsteps, codes_s[0],
-                    rn_s[0], 2.0 * rat, ik.CHK, qsteps.shape[0],
-                    interpret=ik.INTERPRET,
-                )
-                d_cand, slots = ik.merge_packed(
-                    packed, slot_s[0, 0], nprobe, k_local
-                )
-            else:
-                ds, rs = scan_probed_slabs(
-                    q8, codes_s[0], rn_s[0], stepc_s[0, 0], qidx_s[0, 0],
-                    rat, cap, d_dim, kp,
-                )
-                cat_d = ds[slot_s[0, 0]].reshape(qb_local, nprobe * kp)
-                cat_i = rs[slot_s[0, 0]].reshape(qb_local, nprobe * kp)
-                neg, sel = jax.lax.top_k(-cat_d, k_local)
-                d_cand = -neg
-                slots = jnp.take_along_axis(cat_i, sel, axis=1)
-            # -1 for empty slots -> merge-masked; the score mask also kills
-            # the kernel's UNSET second-best slots (arg2 initialized to the
-            # block-0 best with _BIG score — a real row id the rowid gather
-            # alone would let through as a duplicate with a huge distance)
+            ds, rs = scan_probed_slabs(
+                q8, codes_s[0], rn_s[0], stepc_s[0, 0], qidx_s[0, 0],
+                rat, cap, d_dim, kp,
+            )
+            cat_d = ds[slot_s[0, 0]].reshape(qb_local, nprobe * kp)
+            cat_i = rs[slot_s[0, 0]].reshape(qb_local, nprobe * kp)
+            neg, sel = jax.lax.top_k(-cat_d, k_local)
+            d_cand = -neg
+            slots = jnp.take_along_axis(cat_i, sel, axis=1)
+            # -1 for empty slots -> merge-masked
             rows = jnp.where(d_cand < _IVF_BIGF / 2, rowid_s[0][slots], -1)
             # quantized int-score -> fp32 squared L2 so shards with
             # different scales merge in one metric space
@@ -711,9 +557,9 @@ class ShardedANNIndex:
             return merge(d_loc, rows)
 
         fn = jax.jit(
-            lambda q, dev, qscale, ratio, stepc, stepv, qidx, slot: body(
+            lambda q, dev, qscale, ratio, stepc, qidx, slot: body(
                 q, dev[3], dev[4][0], dev[4][1], dev[4][4], qscale, ratio,
-                stepc, stepv, qidx, slot,
+                stepc, qidx, slot,
             )
         )
         self._fns[key] = fn
@@ -762,50 +608,39 @@ class ShardedANNIndex:
         return fn
 
     def _ivfpq_scan_fn(self, k: int, k_local: int, kp: int, nprobe: int,
-                       s_pad: int, qb_local: int, v_pad: int = 0):
+                       s_pad: int, qb_local: int):
         """IVFPQ per-shard probed-slab scan: the IVFINT8 body with PQ slab
         reconstruction (scan_probed_slabs_pq) and per-shard rotation."""
-        key = ("ivfpq_scan", k, k_local, kp, nprobe, s_pad, qb_local, v_pad)
+        key = ("ivfpq_scan", k, k_local, kp, nprobe, s_pad, qb_local)
         fn = self._fns.get(key)
         if fn is not None:
             return fn
         mesh = self.mesh
         cap = self.subs[0].cap
-        m_pq = self.subs[0].codes_cm.shape[1]
         merge = self._merge_fn(k)
-        use_kern = self._ivf_kernel_ok()
-        codes_spec = (
-            P("shard", None, None, None) if use_kern
-            else P("shard", None, None)
-        )
-        rn_spec = P("shard", None, None) if use_kern else P("shard", None)
 
         @functools.partial(
             jax.shard_map,
             mesh=mesh,
             in_specs=(
                 P("data", None),
-                codes_spec,                # packed codes stack
-                rn_spec,                   # recon norms
-                P("shard", None),          # -> local row ids (chunk space
-                                           # for the kernel, slab space else)
-                P("shard"),                # codebook scales
-                P("shard"),                # host-computed query scales
-                P("shard"),                # sq/sc ratios
+                P("shard", None, None),            # packed codes stack
+                P("shard", None),                  # recon norms
+                P("shard", None),                  # -> local row ids
+                P("shard"),                        # codebook scales
+                P("shard"),                        # host-computed q scales
+                P("shard"),                        # sq/sc ratios
                 P("shard", None, None, None),      # int8 centroid tables
                 P("shard", None, None),            # OPQ rotations
-                P("data", "shard", None),          # step_cluster/chunk
-                P("data", "shard", None),          # step_visit (+sentinel)
-                P("data", "shard", None, None),    # visit query tiles
+                P("data", "shard", None),          # step_cluster
+                P("data", "shard", None, None),    # step query tiles
                 P("data", "shard", None, None),    # (query, probe) -> slot
             ),
             out_specs=(P("data", None), P("data", None), P("data", None)),
             check_vma=False,
         )
         def body(q, codes_s, rn_s, rowid_s, scale_s, qscale_s, ratio_s,
-                 cent_bf_s, rot_s, stepc_s, stepv_s, qidx_s, slot_s):
-            from deepreadmapper_tpu.ops import ivf_kernel as ik
-
+                 cent_bf_s, rot_s, stepc_s, qidx_s, slot_s):
             sc = scale_s[0]
             rat = ratio_s[0]
             q8f = jnp.round((q @ rot_s[0]) / qscale_s[0])
@@ -814,48 +649,23 @@ class ShardedANNIndex:
                 [q8f.astype(jnp.int8),
                  jnp.zeros((1, q.shape[1]), jnp.int8)]
             )
-            if use_kern and qb_local >= IVF_FOLD_MIN_Q \
-                    and k_local <= ik.FS * ik.KP:
-                qsteps = q8[qidx_s[0, 0]]
-                cb = cent_bf_s[0]
-                facc = ik.ivf_chunk_scan_pq_fold(
-                    stepc_s[0, 0], stepv_s[0, 0], qidx_s[0, 0], qsteps,
-                    codes_s[0], rn_s[0], cb.reshape(-1, cb.shape[-1]),
-                    2.0 * rat, ik.CHK, m_pq, qb_local,
-                    interpret=ik.INTERPRET,
-                )
-                d_cand, slots = ik.merge_fold(facc, qb_local, k_local)
-            elif use_kern:
-                qsteps = q8[qidx_s[0, 0]]
-                cb = cent_bf_s[0]
-                packed = ik.ivf_chunk_scan_pq(
-                    stepc_s[0, 0], stepv_s[0, 0], qsteps, codes_s[0],
-                    rn_s[0], cb.reshape(-1, cb.shape[-1]), 2.0 * rat,
-                    ik.CHK, m_pq, qsteps.shape[0], interpret=ik.INTERPRET,
-                )
-                d_cand, slots = ik.merge_packed(
-                    packed, slot_s[0, 0], nprobe, k_local
-                )
-            else:
-                ds, rs = scan_probed_slabs_pq(
-                    q8, codes_s[0], rn_s[0], cent_bf_s[0], stepc_s[0, 0],
-                    qidx_s[0, 0], rat, cap, kp,
-                )
-                cat_d = ds[slot_s[0, 0]].reshape(qb_local, nprobe * kp)
-                cat_i = rs[slot_s[0, 0]].reshape(qb_local, nprobe * kp)
-                neg, sel = jax.lax.top_k(-cat_d, k_local)
-                d_cand = -neg
-                slots = jnp.take_along_axis(cat_i, sel, axis=1)
-            # score mask: see the IVFINT8 body — kills unset second-best
-            # kernel slots that would otherwise alias the block-0 best row
+            ds, rs = scan_probed_slabs_pq(
+                q8, codes_s[0], rn_s[0], cent_bf_s[0], stepc_s[0, 0],
+                qidx_s[0, 0], rat, cap, kp,
+            )
+            cat_d = ds[slot_s[0, 0]].reshape(qb_local, nprobe * kp)
+            cat_i = rs[slot_s[0, 0]].reshape(qb_local, nprobe * kp)
+            neg, sel = jax.lax.top_k(-cat_d, k_local)
+            d_cand = -neg
+            slots = jnp.take_along_axis(cat_i, sel, axis=1)
             rows = jnp.where(d_cand < _IVF_BIGF / 2, rowid_s[0][slots], -1)
             d_loc = (d_cand + rat * rat * qn[:, None]) * (sc * sc)
             return merge(d_loc, rows)
 
         fn = jax.jit(
-            lambda q, dev, qscale, ratio, stepc, stepv, qidx, slot: body(
+            lambda q, dev, qscale, ratio, stepc, qidx, slot: body(
                 q, dev[3], dev[4][0], dev[4][1], dev[4][4], qscale, ratio,
-                dev[4][5], dev[4][6], stepc, stepv, qidx, slot,
+                dev[4][5], dev[4][6], stepc, qidx, slot,
             )
         )
         self._fns[key] = fn
@@ -898,11 +708,8 @@ class ShardedANNIndex:
 
         approx = cmax >= IVFInt8Index._APPROX_PROBE_NLIST
         cap = self.subs[0].cap
-        use_kern = self._ivf_kernel_ok()
         k_eff = min(k, self.ntotal)
-        from deepreadmapper_tpu.ops import ivf_kernel as ik
-
-        kp = ik.KP if use_kern else min(k_eff, cap)
+        kp = min(k_eff, cap)
         k_local = min(k_eff, nprobe * kp, self.n_local)
         k_merge = min(k, self.mesh.shape["shard"] * k_local)
         pq_kind = self.kind == "ivfpq"
@@ -944,13 +751,8 @@ class ShardedANNIndex:
             probe = self._fetch_probe_local(probe_fn(qj, dev, qscale, ratio))
             qb_local = width // n_data
             # host plan inversion per (data position, local shard); pad
-            # every plan to one step count so all devices run one program.
-            # Kernel path: fill-aware CHUNKED plans (step_chunk +
-            # step_visit + per-visit query tiles); extension steps past a
-            # shard's own plan CONTINUE its final visit over the shard's
-            # dump chunk — +inf scores fold as no-ops, so the re-written
-            # final state is unchanged.
-            qtile = ik.QTK if use_kern else _IVF_QTILE
+            # every plan to one step count so all devices run one program
+            qtile = _IVF_QTILE
 
             def _clip(db, li):
                 # dummy probes (nprobe > this shard's real cluster count)
@@ -961,82 +763,39 @@ class ShardedANNIndex:
                     ccounts[li] - 1,
                 )
 
-            if use_kern:
-                plans = [
-                    [
-                        self.subs[li]._build_plan_chunked(_clip(db, li),
-                                                          qtile)
-                        for li in range(s_loc)
-                    ]
-                    for db in range(n_data)
+            plans = [
+                [
+                    self.subs[li]._build_plan(_clip(db, li), qtile)
+                    for li in range(s_loc)
                 ]
-                s_pad = self._global_max(
-                    max(p[0].shape[0] for row in plans for p in row)
-                )
-                v_pad = self._global_max(
-                    max(p[2].shape[0] for row in plans for p in row)
-                )
-                stepc = np.zeros((n_data, s_loc, s_pad), np.int32)
-                stepv = np.full((n_data, s_loc, s_pad + 1), -1, np.int32)
-                qidx = np.full(
-                    (n_data, s_loc, v_pad, qtile), qb_local, np.int32
-                )
-                slot = np.zeros(
-                    (n_data, s_loc, qb_local, nprobe), np.int32
-                )
-                for db in range(n_data):
-                    for li in range(s_loc):
-                        sc, sv, qi, so = plans[db][li]
-                        ln = sc.shape[0]
-                        dumpc = int(
-                            self.subs[li]._chunk_meta()[1][
-                                self.subs[li].n_slabs
-                            ]
-                        )
-                        stepc[db, li, :ln] = sc
-                        stepc[db, li, ln:] = dumpc
-                        stepv[db, li, :ln] = sv[:-1]
-                        stepv[db, li, ln:s_pad] = sv[ln - 1]
-                        qidx[db, li, : qi.shape[0]] = qi
-                        slot[db, li] = so
-            else:
-                plans = [
-                    [
-                        self.subs[li]._build_plan(_clip(db, li), qtile)
-                        for li in range(s_loc)
-                    ]
-                    for db in range(n_data)
-                ]
-                s_pad = self._global_max(
-                    max(p[0].shape[0] for row in plans for p in row)
-                )
-                v_pad = 0
-                stepc = np.zeros((n_data, s_loc, s_pad), np.int32)
-                stepv = np.zeros((n_data, s_loc, 1), np.int32)  # unused
-                qidx = np.full(
-                    (n_data, s_loc, s_pad, qtile), qb_local, np.int32
-                )
-                slot = np.zeros(
-                    (n_data, s_loc, qb_local, nprobe), np.int32
-                )
-                for db in range(n_data):
-                    for li in range(s_loc):
-                        sc, qi, so = plans[db][li]
-                        stepc[db, li, : sc.shape[0]] = sc
-                        qidx[db, li, : qi.shape[0]] = qi
-                        slot[db, li] = so
+                for db in range(n_data)
+            ]
+            s_pad = self._global_max(
+                max(p[0].shape[0] for row in plans for p in row)
+            )
+            stepc = np.zeros((n_data, s_loc, s_pad), np.int32)
+            qidx = np.full(
+                (n_data, s_loc, s_pad, qtile), qb_local, np.int32
+            )
+            slot = np.zeros(
+                (n_data, s_loc, qb_local, nprobe), np.int32
+            )
+            for db in range(n_data):
+                for li in range(s_loc):
+                    sc, qi, so = plans[db][li]
+                    stepc[db, li, : sc.shape[0]] = sc
+                    qidx[db, li, : qi.shape[0]] = qi
+                    slot[db, li] = so
             scan_fn = (
                 self._ivfpq_scan_fn if pq_kind else self._ivf_scan_fn
             )
-            fn = scan_fn(k_merge, k_local, kp, nprobe, s_pad, qb_local,
-                         v_pad)
+            fn = scan_fn(k_merge, k_local, kp, nprobe, s_pad, qb_local)
             # dispatch only — results fetch after the loop so batch i+1's
             # probe overlaps batch i's scan (the probe fetch itself must
             # block: the plan depends on it)
             pending.append((s, e, fn(
                 qj, dev, qscale, ratio,
                 self._put(stepc, "data", "shard", None),
-                self._put(stepv, "data", "shard", None),
                 self._put(qidx, "data", "shard", None, None),
                 self._put(slot, "data", "shard", None, None),
             )))
@@ -1085,11 +844,7 @@ class ShardedANNIndex:
     def _get_search_fn(self, k: int, ef_eff: int, k_local: int):
         """Build (once per (k, ef) signature) the jit-wrapped shard_map search
         — redefining the closure per call would retrace + recompile every
-        search() invocation.  Returns (fn, extra): search calls
-        fn(q, dev, *extra); extra carries the lazily-built PQ oracle arrays
-        as ARGUMENTS (mutating the cached dev tuple would change its treedef
-        and retrace every compiled fn; closing over them is illegal in
-        multi-process mode)."""
+        search() invocation.  Search calls fn(q, dev)."""
         key = (k, ef_eff, k_local)
         hit = self._fns.get(key)
         if hit is not None:
@@ -1098,7 +853,6 @@ class ShardedANNIndex:
         mode = self.mode
         n_local = self.n_local
         merge = self._merge_fn(k)
-        extra = ()
 
         if self.kind == "flat":
 
@@ -1117,163 +871,70 @@ class ShardedANNIndex:
                 return merge(d, i)
 
             fn = jax.jit(lambda q, dev: body(q, dev[3]))
-        elif self.kind == "pqflat":
-            n_pad = int(self._device()[3].shape[2])  # codes are [S, m, Np]
-            fused = sk.can_fuse(n_local, n_pad, k_local)
-            if fused:
-                chunk = sk.choose_chunk(n_pad)
-
-                @functools.partial(
-                    jax.shard_map,
-                    mesh=mesh,
-                    in_specs=(
-                        P("data", None),
-                        P("shard", None, None),
-                        P("shard", None, None),
-                        P("shard"),
-                        P("shard", None, None),
-                    ),
-                    out_specs=(P("data", None), P("data", None), P("data", None)),
-                    check_vma=False,
-                )
-                def body(q, codes_s, cent2d_s, scale_s, rot_s):
-                    q = q @ rot_s[0]  # per-shard OPQ rotation (or identity)
-                    s = scale_s[0]
-                    # clip-free query scale; the sq/sc ratio folds into the
-                    # score (query dims may exceed the codebook range)
-                    sq, rat = sk.query_scale_ratio_jnp(q, s)
-                    q8f = jnp.round(q / sq)
-                    qt_b = q8f.T.astype(jnp.bfloat16)  # exact int8 values
-                    qn = jnp.sum(q8f * q8f, axis=-1)
-                    d, i = sk.fused_scan_topk(
-                        qt_b, codes_s[0], n_local, k_local, chunk, "pq",
-                        cent2d=cent2d_s[0], ratio=rat,
-                    )
-                    # quantized scores -> fp32 squared L2 so shards with
-                    # different codebook scales merge in one metric space
-                    d = (rat * rat * qn[:, None] + d) * (s * s)
-                    return merge(d, i)
-
-                fn = jax.jit(
-                    lambda q, dev: body(
-                        q, dev[3], dev[4][3], dev[4][2], dev[4][4]
-                    )
-                )
-            else:
-
-                @functools.partial(
-                    jax.shard_map,
-                    mesh=mesh,
-                    in_specs=(
-                        P("data", None),
-                        P("shard", None, None),
-                        P("shard", None),
-                        P("shard", None, None),
-                        P("shard"),
-                        P("shard", None, None),
-                    ),
-                    out_specs=(P("data", None), P("data", None), P("data", None)),
-                    check_vma=False,
-                )
-                def body(q, codes_s, rn_s, cent_flat_s, scale_s, rot_s):
-                    from deepreadmapper_tpu.index.pq_flat import _pq_int8_topk
-
-                    q = q @ rot_s[0]  # per-shard OPQ rotation (or identity)
-                    s = scale_s[0]
-                    sq, rat = sk.query_scale_ratio_jnp(q, s)
-                    q8 = jnp.round(q / sq).astype(jnp.int8)
-                    chunk = min(_PQ_CHUNK, codes_s.shape[2])
-                    if chunk and codes_s.shape[2] % chunk:  # sub-chunk pads
-                        chunk = codes_s.shape[2]
-                    # approx_max_k per chunk: 4.3x faster at 2M rows/shard —
-                    # the sharded index IS the genome-scale deployment, so
-                    # throughput wins here.
-                    d, i = _pq_int8_topk(
-                        q8, codes_s[0], rn_s[0], cent_flat_s[0],
-                        jnp.int32(n_local), k_local, chunk, exact=False,
-                        ratio=rat,
-                    )
-                    # quantized scores -> fp32 squared L2 so shards with
-                    # different codebook scales merge in one metric space
-                    d = d * (s * s)
-                    return merge(d, i)
-
-                extra = self._pq_oracle_dev()
-                fn = jax.jit(
-                    lambda q, dev, rn_o, cf_o: body(
-                        q, dev[3], rn_o, cf_o, dev[4][2], dev[4][4]
-                    )
-                )
-        elif self.kind == "int8flat":
+        elif self.kind in ("pqflat", "int8flat"):
+            pq = self.kind == "pqflat"
             n_pad = int(self._device()[3].shape[1])
             fused = sk.can_fuse(n_local, n_pad, k_local)
             if fused:
                 chunk = sk.choose_chunk(n_pad)
-
-                @functools.partial(
-                    jax.shard_map,
-                    mesh=mesh,
-                    in_specs=(
-                        P("data", None),
-                        P("shard", None, None),
-                        P("shard"),
-                    ),
-                    out_specs=(P("data", None), P("data", None), P("data", None)),
-                    check_vma=False,
-                )
-                def body(q, codes_s, scale_s):
-                    s = scale_s[0]
-                    sq, rat = sk.query_scale_ratio_jnp(q, s)
-                    q8f = jnp.round(q / sq)
-                    qt_b = q8f.T.astype(jnp.bfloat16)  # exact int8 values
-                    qn = jnp.sum(q8f * q8f, axis=-1)
-                    d, i = sk.fused_scan_topk(
-                        qt_b, codes_s[0], n_local, k_local, chunk, "int8",
-                        ratio=rat,
-                    )
-                    d = (rat * rat * qn[:, None] + d) * (s * s)
-                    return merge(d, i)
-
-                fn = jax.jit(
-                    lambda q, dev: body(q, dev[3], dev[4][1])
-                )
             else:
+                chunk = min(_SCAN_CHUNK, n_pad)
+                if n_pad % chunk:  # sub-chunk pads
+                    chunk = n_pad
 
-                @functools.partial(
-                    jax.shard_map,
-                    mesh=mesh,
-                    in_specs=(
-                        P("data", None),
-                        P("shard", None, None),
-                        P("shard", None),
-                        P("shard"),
-                    ),
-                    out_specs=(P("data", None), P("data", None), P("data", None)),
-                    check_vma=False,
-                )
-                def body(q, codes_s, rn_s, scale_s):
-                    from deepreadmapper_tpu.index.int8_flat import (
-                        _int8_topk,
+            @functools.partial(
+                jax.shard_map,
+                mesh=mesh,
+                in_specs=(
+                    P("data", None),
+                    P("shard", None, None),
+                    # int8: row norms; pq: int8 codebooks
+                    P("shard", None, None, None) if pq else P("shard", None),
+                    P("shard"),
+                    P("shard", None, None) if pq else None,  # OPQ rotations
+                ),
+                out_specs=(P("data", None), P("data", None), P("data", None)),
+                check_vma=False,
+            )
+            def body(q, codes_s, aux_s, scale_s, rot_s):
+                from deepreadmapper_tpu.index.int8_flat import _int8_topk
+                from deepreadmapper_tpu.index.pq_flat import _pq_int8_topk
+
+                if pq:
+                    q = q @ rot_s[0]  # per-shard OPQ rotation (or identity)
+                s = scale_s[0]
+                # clip-free query scale; the sq/sc ratio folds into the
+                # score (query dims may exceed the code range)
+                sq, rat = sk.query_scale_ratio_jnp(q, s)
+                q8f = jnp.round(q / sq)
+                q8 = q8f.astype(jnp.int8)
+                if fused:
+                    d, i = sk.fused_scan_topk(
+                        q8, codes_s[0], n_local, k_local, chunk,
+                        "pq" if pq else "int8",
+                        cent8=aux_s[0] if pq else None, ratio=rat,
                     )
-
-                    s = scale_s[0]
-                    sq, rat = sk.query_scale_ratio_jnp(q, s)
-                    q8 = jnp.round(q / sq).astype(jnp.int8)
-                    chunk = min(_INT8_CHUNK, codes_s.shape[1])
-                    if codes_s.shape[1] % chunk:  # sub-chunk pads
-                        chunk = codes_s.shape[1]
+                    d = d + rat * rat * jnp.sum(q8f * q8f, axis=-1)[:, None]
+                elif pq:
+                    d, i = _pq_int8_topk(
+                        q8, codes_s[0], aux_s[0], jnp.int32(n_local),
+                        k_local, chunk, exact=False, ratio=rat,
+                    )
+                else:
                     d, i = _int8_topk(
-                        q8, codes_s[0], rn_s[0], jnp.int32(n_local), k_local,
-                        chunk, ratio=rat,
+                        q8, codes_s[0], aux_s[0], jnp.int32(n_local),
+                        k_local, chunk, ratio=rat,
                     )
-                    # quantized scores -> fp32 squared L2 so shards with
-                    # different scales merge in one metric space
-                    d = d * (s * s)
-                    return merge(d, i)
+                # quantized scores -> fp32 squared L2 so shards with
+                # different scales merge in one metric space
+                return merge(d * (s * s), i)
 
-                fn = jax.jit(
-                    lambda q, dev: body(q, dev[3], dev[4][0], dev[4][1])
-                )
+            if pq:
+                fn = jax.jit(lambda q, dev: body(
+                    q, dev[3], dev[4][3], dev[4][2], dev[4][4]))
+            else:
+                fn = jax.jit(lambda q, dev: body(
+                    q, dev[3], dev[4][0], dev[4][1], None))
         else:
             n_levels = len(self._device()[1])
             level_specs = tuple(
@@ -1317,8 +978,8 @@ class ShardedANNIndex:
             fn = jax.jit(
                 lambda q, dev: body(q, dev[0], dev[1], dev[2], dev[3], dev[4])
             )
-        self._fns[key] = (fn, extra)
-        return fn, extra
+        self._fns[key] = fn
+        return fn
 
     def search(self, queries: np.ndarray, k: int, ef: int = 128):
         """queries [Q, D] -> (ids [Q, k] int64 global, dists [Q, k]).
@@ -1334,19 +995,19 @@ class ShardedANNIndex:
         dev = self._device()
         ef_eff = max(ef, k)
         k_local = min(ef_eff, self.n_local)
-        fn, extra = self._get_search_fn(k, ef_eff, k_local)
+        fn = self._get_search_fn(k, ef_eff, k_local)
         # Bound per-call queries (8192/data position) so the per-shard score
-        # tensors stay in HBM; pad every batch to the same shape so all
+        # tensors stay in device memory; pad every batch to the same shape so all
         # batches share one compiled program.
         q_super = _Q_SUPER_PER_DATA * n_data
         out_i = np.empty((nq, k), np.int64)
         out_d = np.empty((nq, k), np.float32)
         pending = []
-        # the fused Pallas scans need the per-device query count to be a
+        # the windowed scans need the per-device query count to be a
         # query-tile multiple; over-padding is harmless for the other kinds
         align = (
             n_data * sk.QT
-            if self.kind in ("int8flat", "pqflat") and sk.use_fused_scan()
+            if self.kind in ("int8flat", "pqflat") and use_kernels()
             else n_data
         )
         for s in range(0, nq, q_super):
@@ -1356,7 +1017,7 @@ class ShardedANNIndex:
             if qb.shape[0] < width:
                 qb = np.pad(qb, ((0, width - qb.shape[0]), (0, 0)))
             qj = self._put(qb, "data", None)
-            pending.append((s, e, fn(qj, dev, *extra)))
+            pending.append((s, e, fn(qj, dev)))
         for s, e, (d, i, shd) in pending:
             out_i[s:e] = compose_global_ids(
                 np.asarray(i)[: e - s], np.asarray(shd)[: e - s], self.n_local

@@ -4,8 +4,8 @@ The multi-host scale-out the reference lacks (SURVEY.md §2.7): reference
 vectors are sharded over the 'shard' mesh axis, queries are replicated across
 shards (and data-parallel over 'data'), each shard computes a local top-k with
 shard-global ids, then per-shard results merge via all_gather + lax.top_k.
-Collectives ride the mesh (ICI within a slice); no NCCL analog needed — XLA
-inserts them from shard_map.
+XLA inserts the collectives from shard_map and hands them to NCCL on the
+GPU.
 """
 
 from __future__ import annotations

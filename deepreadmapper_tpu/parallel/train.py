@@ -1,7 +1,7 @@
 """Encoder fine-tuning step (sharded).
 
 The shipped model is a FINE-TUNED bi-GRU ("finetuned_sgn33"); the framework
-therefore supports continuing that training on TPU.  The objective is
+therefore supports continuing that training on the accelerator.  The objective is
 embedding regression/contrastive alignment: a read's embedding should match
 the embedding of its source genome window (self-supervised pairs produced by
 the windowing pipeline).
@@ -10,7 +10,7 @@ Sharding: for a 64-hidden GRU the real parallelism is pure data parallelism —
 batch sharded over the full mesh ('data' and 'shard' axes both act as DP for
 training), parameters replicated, gradients all-reduced by jit from the
 sharding annotations.  Tensor-parallel sharding of 64/192-wide matmuls would
-shard below the MXU tile size and only add latency, so it is deliberately not
+shard below a useful matmul tile and only add latency, so it is deliberately not
 used (SURVEY.md §2.7).
 """
 

@@ -1,7 +1,7 @@
 """Encoder fine-tuning pipeline.
 
 The shipped model is "finetuned_sgn33" — a fine-tuned bi-GRU.  This module
-provides the training loop that produces such models on TPU: self-supervised
+provides the training loop that produces such models: self-supervised
 (read, source-window) pairs are generated by sampling windows from a reference
 genome and simulating reads from them (substitution noise), then the sharded
 InfoNCE train step (parallel/train.py) aligns read embeddings with their

@@ -12,7 +12,7 @@ Reference semantics (src/utils/post_processor.cpp):
   (post_process_l2_*, :551-748; batch_reranker, reranker.cpp:98-196).
 * Invariant: k <= k_clusters * 2 * stride (post_processor.cpp:567-570).
 
-TPU mapping: expansion/dedup is cheap host integer work (the reference also
+Device mapping: expansion/dedup is cheap host integer work (the reference also
 does it scalar on host); the rerank is a fixed-shape device kernel — candidate
 slots are a dense [Q, k_clusters*(2*stride-1)] matrix with invalid slots
 masked to +inf, embeddings gathered from the unique pool, one top-k per row.
@@ -165,7 +165,7 @@ def post_process_sw(
 
     Returns (final_ids [Q, k] int64, final_scores [Q, k] int32).
     """
-    from deepreadmapper_tpu.ops.sw_pallas import sw_scores_auto as sw_scores
+    from deepreadmapper_tpu.ops.sw import sw_scores
 
     check_invariant(k, k_clusters, stride)
     if stride == 1:

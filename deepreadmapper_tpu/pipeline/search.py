@@ -493,8 +493,8 @@ def run_pipeline(
             # simulation); a deliberate divergence.
             if native.available() and vectorizer.max_len == tok.MAX_LEN:
                 # 48 B/candidate wire upload + on-device tokenization; the
-                # pool embeddings stay ON DEVICE for the rerank kernel (the
-                # host round-trip was ~60% of sparse post-process time).
+                # pool embeddings stay ON DEVICE for the rerank (no host
+                # round-trip of 512 B per candidate).
                 wire = native.pack_windows_by_id(genome, ref_len, unique_ids)
                 return vectorizer.vectorize_wire(wire, device_out=True)
             if native.available():

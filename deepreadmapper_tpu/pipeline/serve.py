@@ -4,7 +4,7 @@ The reference has no serving story — every `pipeline` invocation pays the
 full index load (main.cpp:34-47) and, in this framework's case, the device
 upload + XLA compile again.  At genome scale that setup dominates
 small-batch latency (index upload is GBs through the host<->device link;
-remote AOT compiles cost tens of seconds per shape signature).  `serve`
+XLA compiles cost seconds per shape signature).  `serve`
 loads the engine and the index-matched encoder ONCE, then answers requests
 over a line-delimited-JSON protocol on stdin/stdout, so steady-state
 requests run at the measured warm search rate.

@@ -6,7 +6,7 @@ The reference wraps every stage in std::chrono spans with printed prefixes
 
   * ``stage``/``Tracer`` — wall-clock stage spans, nested, with a summary
     table; used by the pipelines.
-  * ``device_trace`` — context manager around jax.profiler for real TPU
+  * ``device_trace`` — context manager around jax.profiler for device
     traces (tensorboard-viewable), the deep-profiling analog.
   * ``Counters`` — named work counters (distance evaluations, expanded beam
     nodes) the engines can bump.

@@ -1,7 +1,7 @@
 // Native HNSW graph builder.
 //
 // Graph construction is inherently sequential/divergent — the one part of the
-// index that stays on the host (search is the TPU-vectorized side,
+// index that stays on the host (search is the device-vectorized side,
 // deepreadmapper_tpu/index/hnsw.py).  The Python builder in hnsw_build.py is
 // the readable specification; this is the production implementation
 // (~1000x faster), same algorithm:

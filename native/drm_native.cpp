@@ -1,6 +1,6 @@
 // Native data-loader for deepreadmapper_tpu.
 //
-// TPU-side compute is JAX/Pallas; this library covers the host-side hot
+// Device-side compute is JAX/Pallas; this library covers the host-side hot
 // paths the reference implements in C++ (src/utils/parse_inputs.cpp,
 // src/inference/preprocess.cpp): FASTA byte cleaning, and a FUSED
 // window-generation + reverse-complement + tokenization kernel that emits

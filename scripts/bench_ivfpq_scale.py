@@ -1,15 +1,13 @@
-"""IVFPQ at the >100M-row tier: one chip, 8 B/row codes + 4 B/row norms.
+"""IVFPQ at the >100M-row tier: one card, 8 B/row codes + 4 B/row norms.
 
-The round-1 VERDICT asked what happens when one chip must hold >100M
-windows: INT8FLAT needs 12.8 GB of codes at 100M rows (HBM-marginal) and
-the exhaustive scans go linear.  IVFPQ holds 100M rows in ~1.5 GB and
-prunes to ~nprobe/nlist of the matmul work via the Pallas slab-scan kernel
-(ops/ivf_kernel.py).  This script builds a 50 Mbp genome (~100M windows,
-both strands), streams the two-pass PQ build, and reports q/s +
-planted-truth top-1 over an nprobe ladder.
+INT8FLAT needs 12.8 GB of codes at 100M rows and the exhaustive scans go
+linear.  IVFPQ holds 100M rows in ~1.5 GB and prunes to ~nprobe/nlist of
+the matmul work via the probed-slab scan.  This script builds a 50 Mbp
+genome (~100M windows, both strands), streams the two-pass PQ build, and
+reports q/s + planted-truth top-1 over an nprobe ladder.
 
-    python - [--n-bp 50000000] [--opq] --keep-dir /tmp/ivfpq100m \
-        < scripts/bench_ivfpq_scale.py
+    python scripts/bench_ivfpq_scale.py [--n-bp 50000000] [--opq] \
+        --keep-dir chiprun_out/ivfpq100m
 """
 
 import argparse
@@ -39,7 +37,7 @@ def main():
                     help="after the ladder, run the full pipeline with "
                          "--dense-rerank for the accuracy recipe number")
     ap.add_argument("--k", type=int, default=128)
-    ap.add_argument("--keep-dir", default="/tmp/ivfpq_scale")
+    ap.add_argument("--keep-dir", default="chiprun_out/ivfpq_scale")
     ap.add_argument("--cpu", action="store_true")
     args = ap.parse_args()
     if args.cpu:

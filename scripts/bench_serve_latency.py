@@ -1,15 +1,15 @@
 """Per-request serving latency at genome scale: exhaustive scan vs IVF.
 
 Batched throughput hides IVF's real win: an exhaustive scan reads/multiplies
-all N rows PER REQUEST no matter how small the batch, while the IVF kernel
-scans ~nprobe/nlist of the index.  This measures wall-clock per request
-(including the tunnel fetch — what a serve-daemon client sees) for request
+all N rows PER REQUEST no matter how small the batch, while the IVF scan
+covers ~nprobe/nlist of the index.  This measures wall-clock per request
+(including the result fetch — what a serve-daemon client sees) for request
 sizes a mapper daemon actually gets.
 
 Reuses the bench_crossover --keep-dir artifacts:
 
-    python - --keep-dir /tmp/ivf40m --batches 128 512 2048 \
-        < scripts/bench_serve_latency.py
+    python scripts/bench_serve_latency.py --keep-dir chiprun_out/ivf40m \
+        --batches 128 512 2048
 """
 
 import argparse
@@ -23,7 +23,7 @@ import jax  # noqa: F401
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--keep-dir", default="/tmp/ivf40m")
+    ap.add_argument("--keep-dir", default="chiprun_out/ivf40m")
     ap.add_argument("--batches", type=int, nargs="+", default=[128, 512, 2048])
     ap.add_argument("--nprobe", type=int, default=32)
     ap.add_argument("--k", type=int, default=128)
@@ -47,7 +47,6 @@ def main():
     ivf = IVFInt8Index.load(ivf_dir)
     print(json.dumps({
         "n_rows": flat.ntotal, "nlist": ivf.nlist, "cap": ivf.cap,
-        "kernel": ivf._use_kernel(),
     }), flush=True)
 
     vec = Vectorizer()

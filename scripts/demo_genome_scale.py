@@ -4,7 +4,7 @@
 Reports build time, cold and steady-state search queries/s, and top-1
 accuracy against the simulated truth (read start positions), exercising every
 genome-scale path: native window packing, device tokenization,
-device-resident quantized encode, int8 MXU scan search, dense passthrough
+device-resident quantized encode, int8 windowed scan search, dense passthrough
 post-processing.  argv: [n_bp] [n_reads] [index_type].
 """
 

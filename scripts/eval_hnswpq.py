@@ -1,5 +1,5 @@
 """HNSWPQ quality evidence: recall-vs-ef against the exact oracle and the
-exhaustive-ADC ceiling (VERDICT round-1 item 4).
+exhaustive-ADC ceiling.
 
 FAISS is not installable here, so the candidate-set comparison target is the
 repo's own PQFLAT exhaustive ADC scan built from the SAME codes+codebook as
@@ -17,8 +17,8 @@ fp32 oracle, and candidate-set overlap@128 vs the same-codebook exhaustive
 ADC (the FAISS-equivalence measure).  Also prints the ADC ceiling itself and
 INT8FLAT for context.  One JSON line at the end.
 
-Usage: python - [--n-bp N] < scripts/eval_hnswpq.py   (stdin trick; CPU
-hermetic by default, JAX_CPU=0 for TPU).
+Usage: python scripts/eval_hnswpq.py [--n-bp N]   (CPU hermetic by
+default, JAX_CPU=0 for the GPU).
 """
 
 import argparse

@@ -2,10 +2,10 @@
 
 MAPQ is only useful downstream (variant callers, IGV filters) if
 10^(-MAPQ/10) tracks the real mis-mapping probability.  The reference
-hardcodes MAPQ 60 (/root/reference/src/utils/utils.cpp:373) — trivially
+hardcodes MAPQ 60 (src/utils/utils.cpp:373) — trivially
 uncalibrated; this harness measures OUR margin-based compute_mapq
 (pipeline/search.py) on a synthetic harder than the uniform planted-repeat
-evals (VERDICT r4 weak #6):
+evals:
 
 * TANDEM ARRAYS: repeat units (300-1500 bp) copied 3-12x in place with
   per-copy divergence — near-identical local competitors, the worst case
@@ -110,7 +110,7 @@ def main():
     ap.add_argument("--index-type", default="INT8FLAT")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--cpu", action="store_true")
-    ap.add_argument("--out", default="results/mapq_calibration_r5.json")
+    ap.add_argument("--out", default="chiprun_out/mapq_calibration.json")
     args = ap.parse_args()
     if args.cpu:
         import jax

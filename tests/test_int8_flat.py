@@ -1,4 +1,4 @@
-"""INT8FLAT engine: near-exact recall via int8 MXU scan (index/int8_flat.py)."""
+"""INT8FLAT engine: near-exact recall via an int8 scan (index/int8_flat.py)."""
 
 import numpy as np
 import pytest

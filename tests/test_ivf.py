@@ -179,136 +179,62 @@ def test_approx_probe_matches_exact_probe(clustered):
     assert overlap >= 0.95, f"approx-probe overlap {overlap}"
 
 
-def test_kernel_path_matches_oracle(clustered, monkeypatch):
-    """The Pallas slab-scan path (interpret mode on CPU): at cap == KP the
-    strided-window selection is exact, so a full probe must reproduce the
-    exhaustive int8 engine exactly; a pruned probe must agree with the
-    lax.scan path's candidates."""
-    from deepreadmapper_tpu.ops import ivf_kernel as ik
+@pytest.mark.parametrize("engine", ["IVFINT8", "IVFPQ"])
+def test_full_probe_large_cap_matches_oracle(clustered, engine):
+    """cap > 128 (few, large slabs): a full probe scans every slab, so the
+    probed-slab scan must reproduce the exhaustive scan over the same
+    codes — the int8 engine for IVFINT8, the exact PQ scan for IVFPQ."""
+    from deepreadmapper_tpu.index.ivf_pq import IVFPQIndex
+    from deepreadmapper_tpu.index.pq_flat import PQFlatIndex
 
     x = clustered
-    q = x[:24] + np.float32(0.01)
-    idx_s = IVFInt8Index.build(x)
-    ii_s, _ = idx_s.search(q, 10, ef=8)
-
-    monkeypatch.setattr(ik, "INTERPRET", True)
-    idx_k = IVFInt8Index.build(x)  # deterministic: same layout as idx_s
-    assert idx_k._use_kernel() and idx_k.cap % ik.KP == 0
-    oi, od = Int8FlatIndex.build(x).search(q, 10)
-    ik_i, ik_d = idx_k.search(q, 10, ef=idx_k.nlist)
+    q = x[:48] + np.float32(0.01)
+    if engine == "IVFINT8":
+        idx = IVFInt8Index.build(x, BuildConfig(nlist=16))
+        oi, od = Int8FlatIndex.build(x).search(q, 10, exact=True)
+    else:
+        idx = IVFPQIndex.build(x, BuildConfig(nlist=16))
+        codes = np.zeros((idx.ntotal, idx.codes_cm.shape[1]), np.uint8)
+        filled = idx.row_ids >= 0
+        codes[idx.row_ids[filled]] = idx.codes_cm[filled]
+        oi, od = PQFlatIndex(codes, idx.codebook, idx.ntotal,
+                             rot=idx.rot).search(q, 10, exact=True)
+    assert idx.cap > 128
+    ii, dd = idx.search(q, 10, ef=idx.nlist)
     recall = np.mean(
-        [len(set(oi[i]) & set(ik_i[i])) / 10 for i in range(len(q))]
+        [len(set(oi[i]) & set(ii[i])) / 10 for i in range(len(q))]
     )
     assert recall >= 0.99, recall
-    np.testing.assert_allclose(ik_d[:, 0], od[:, 0], rtol=1e-5, atol=1e-5)
-    # pruned probe: same plan as the lax.scan path -> same candidates
-    ik_i8, _ = idx_k.search(q, 10, ef=8)
-    overlap = np.mean(
-        [len(set(ii_s[i]) & set(ik_i8[i])) / 10 for i in range(len(q))]
-    )
-    assert overlap >= 0.9, overlap
+    np.testing.assert_allclose(dd[:, 0], od[:, 0], rtol=1e-5, atol=1e-5)
 
 
-def test_kernel_windowed_selection_large_cap(clustered, monkeypatch):
-    """cap > KP exercises the strided-window top-2 approximation (the small
-    fixtures land at cap == KP == exact).  The per-window best always
-    survives, so top-1 self-hits are exact; depth recall stays high because
-    two survivors per window cover a one-slab neighborhood."""
-    from deepreadmapper_tpu.config import BuildConfig
-    from deepreadmapper_tpu.ops import ivf_kernel as ik
-
-    monkeypatch.setattr(ik, "INTERPRET", True)
-    x = clustered
-    q = x[:64] + np.float32(0.005)
-    idx = IVFInt8Index.build(x, BuildConfig(nlist=16))
-    assert idx.cap > ik.KP and idx._use_kernel()
-    ii, _ = idx.search(q, 10, ef=idx.nlist)
-    top1 = np.mean(ii[:, 0] == np.arange(64))
-    assert top1 >= 0.95, top1
-    oi, _ = Int8FlatIndex.build(x).search(q, 10)
-    recall = np.mean(
-        [len(set(oi[i]) & set(ii[i])) / 10 for i in range(64)]
-    )
-    assert recall >= 0.85, recall
-
-
-def test_fold_path_matches_packed_merge(clustered, monkeypatch):
-    """Fold-mode scan (per-query VMEM accumulator, ops/ivf_kernel fold
-    kernels) vs the packed-output + slot-gather + approx merge: same plan,
-    same windowed per-slab selection — the only difference is the global
-    reduction (top-FS per strided window vs global top-k over all probes),
-    so candidate sets must agree to high overlap and the top-1 hit must be
-    identical.  Exercises init sentinels (ids 0, vals _BIG), the sorted
-    insert ladder, and the dump-row plumbing."""
+@pytest.mark.parametrize("engine", ["IVFINT8", "IVFPQ"])
+def test_exact_flag_agrees_at_full_probe(clustered, engine):
+    """search(exact=True) keeps the probe an exact top_k; at a full probe
+    the probed set is everything either way, so results are identical."""
     from deepreadmapper_tpu.index.ivf_pq import IVFPQIndex
-    from deepreadmapper_tpu.ops import ivf_kernel as ik
 
-    monkeypatch.setattr(ik, "INTERPRET", True)
-    x = clustered
-    q = x[:48] + np.float32(0.01)
-    for cls in (IVFInt8Index, IVFPQIndex):
-        idx = cls.build(x)
-        assert idx._use_kernel()
-        monkeypatch.setattr(cls, "_FUSED_MAX_PAIRS", 0)   # force host plan
-        nprobe = max(4, idx.nlist // 4)
-        i_pk, d_pk = idx.search(q, 10, ef=nprobe)          # packed merge
-        monkeypatch.setattr(cls, "_FOLD_MIN_Q", 1)
-        idx._fns.clear()                                   # drop cached fns
-        i_fd, d_fd = idx.search(q, 10, ef=nprobe)
-        assert (i_fd[:, 0] == i_pk[:, 0]).all()
-        np.testing.assert_allclose(d_fd[:, 0], d_pk[:, 0], rtol=0, atol=0)
-        overlap = np.mean(
-            [len(set(i_pk[r]) & set(i_fd[r])) / 10 for r in range(len(q))]
-        )
-        assert overlap >= 0.95, (cls.__name__, overlap)
-        # full probe: fold path must still reproduce the exhaustive oracle
-        i_full, _ = idx.search(q, 10, ef=idx.nlist)
-        oi, _ = Int8FlatIndex.build(x).search(q, 10) \
-            if cls is IVFInt8Index else (None, None)
-        if oi is not None:
-            recall = np.mean(
-                [len(set(oi[r]) & set(i_full[r])) / 10
-                 for r in range(len(q))]
-            )
-            assert recall >= 0.99, recall
-
-
-def test_fused_device_plan_matches_host_plan(clustered, monkeypatch):
-    """The fused small-batch path (probe + device_plan + kernel in ONE
-    program) must return exactly what the host-plan kernel path returns:
-    device_plan re-expresses _build_plan, so every (query, probe) pair
-    scans the same slab through the same windowed selection."""
-    from deepreadmapper_tpu.ops import ivf_kernel as ik
-
-    monkeypatch.setattr(ik, "INTERPRET", True)
-    x = clustered
-    q = x[:48] + np.float32(0.01)
-    idx = IVFInt8Index.build(x)
-    nprobe = max(4, idx.nlist // 4)
-    assert idx._use_kernel()
-    assert len(q) * nprobe <= idx._FUSED_MAX_PAIRS  # fused eligible
-    i_f, d_f = idx.search(q, 10, ef=nprobe)
-    monkeypatch.setattr(IVFInt8Index, "_FUSED_MAX_PAIRS", 0)  # force host
-    i_h, d_h = idx.search(q, 10, ef=nprobe)
-    np.testing.assert_array_equal(i_f, i_h)
-    np.testing.assert_allclose(d_f, d_h, rtol=0, atol=0)
-
-
-def test_exact_escape_under_kernel_layout(clustered, monkeypatch):
-    """search(exact=True) must work when the device cache holds the kernel
-    layout — it is the advertised parity escape from the windowed top-2."""
-    from deepreadmapper_tpu.index.ivf_pq import IVFPQIndex
-    from deepreadmapper_tpu.ops import ivf_kernel as ik
-
-    monkeypatch.setattr(ik, "INTERPRET", True)
+    cls = IVFInt8Index if engine == "IVFINT8" else IVFPQIndex
     x = clustered[:3000]
     q = x[:16] + np.float32(0.01)
-    for cls in (IVFInt8Index, IVFPQIndex):
-        idx = cls.build(x)
-        assert idx._use_kernel()
-        ia, _ = idx.search(q, 10, ef=idx.nlist)          # kernel path
-        ie, _ = idx.search(q, 10, ef=idx.nlist, exact=True)  # scan path
-        overlap = np.mean(
-            [len(set(ia[i]) & set(ie[i])) / 10 for i in range(16)]
-        )
-        assert overlap >= 0.9, (cls.__name__, overlap)
+    idx = cls.build(x)
+    ia, da = idx.search(q, 10, ef=idx.nlist)
+    ie, de = idx.search(q, 10, ef=idx.nlist, exact=True)
+    np.testing.assert_array_equal(ia, ie)
+    np.testing.assert_allclose(da, de, rtol=0, atol=0)
+
+
+def test_search_stats_counters(clustered):
+    """search_stats: a full probe covers every row; a pruned probe covers
+    a strict subset, and the counters are per query."""
+    x = clustered
+    q = x[:32] + np.float32(0.01)
+    idx = IVFInt8Index.build(x)
+    full, part = {}, {}
+    idx.search(q, 5, ef=idx.nlist, stats=full)
+    idx.search(q, 5, ef=4, stats=part)
+    assert full["queries"] == part["queries"] == 32
+    assert full["coverage"] == pytest.approx(1.0)
+    assert 0 < part["coverage"] < 1.0
+    assert part["probed_rows_per_query"] < full["probed_rows_per_query"]
+    assert full["centroid_evals_per_query"] == idx.nlist

@@ -1,5 +1,5 @@
-"""TPU kNN-graph builder (index/knn_build.py): the GANN-equivalent
-(reference src/gann_hnsw/gann_hnsw.cpp) built as MXU matmuls.
+"""kNN-graph builder (index/knn_build.py): the GANN-equivalent
+(reference src/gann_hnsw/gann_hnsw.cpp) built as matmuls.
 
 Gates: exact-kNN correctness vs numpy, heuristic-prune equivalence with the
 insertion builder's scalar heuristic, and search recall parity with the

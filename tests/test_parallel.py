@@ -2,6 +2,7 @@
 
 import numpy as np
 import jax
+import pytest
 
 from deepreadmapper_tpu.ops.topk import l2_topk
 from deepreadmapper_tpu.parallel.mesh import make_mesh
@@ -109,3 +110,24 @@ def test_build_index_distributed_single_process(tmp_path):
     ia, _ = ea.search(emb, 5)
     ib, _ = eb.search(emb, 5)
     np.testing.assert_array_equal(ia, ib)
+
+
+@pytest.mark.parametrize("n", [3000, 4096])
+def test_l2_topk_chunked_masks_padding(n):
+    """The chunked exact top-k pads the reference to a chunk multiple and
+    masks the padding by id: results equal numpy's exact top-k, and no
+    padded id ever surfaces (a huge padding VALUE would square to inf and
+    turn scores into NaN)."""
+    from deepreadmapper_tpu.ops.topk import l2_topk
+
+    rng = np.random.default_rng(3)
+    r = rng.standard_normal((n, 16)).astype(np.float32)
+    q = rng.standard_normal((5, 16)).astype(np.float32)
+    d, i = l2_topk(q, r, 8, chunk=1024)
+    d, i = np.asarray(d), np.asarray(i)
+    want = ((q[:, None, :] - r[None]) ** 2).sum(-1)
+    order = np.argsort(want, axis=1, kind="stable")[:, :8]
+    assert (i < n).all() and np.isfinite(d).all()
+    np.testing.assert_array_equal(i, order)
+    np.testing.assert_allclose(d, np.take_along_axis(want, order, 1),
+                               rtol=1e-4, atol=1e-4)

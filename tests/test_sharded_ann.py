@@ -504,66 +504,32 @@ def test_stream_encoded_sharded_ivfpq_build(tmp_path):
     assert ok >= 40, f"{ok}/48"
 
 
-def test_sharded_ivf_fold_path(data, mesh, monkeypatch):
-    """Fold-mode sharded IVF scan (per-query accumulator inside the kernel,
-    IVF_FOLD_MIN_Q patched down so small fixtures take it): must agree with
-    the packed-merge sharded path on the same index/plan — the reduction is
-    the only difference."""
-    import deepreadmapper_tpu.parallel.sharded_ann as sa
-    from deepreadmapper_tpu.ops import ivf_kernel as ik
-
-    monkeypatch.setattr(ik, "INTERPRET", True)
+@pytest.mark.parametrize("itype", ["IVFINT8", "IVFPQ"])
+def test_sharded_ivf_matches_per_shard_engines(data, mesh, itype):
+    """The probed-slab scan under shard_map: both IVF kinds must reproduce
+    the per-shard single-chip engines through the sharded plan + two-int32
+    merge."""
     x = np.tanh(data).astype(np.float32)
     q = np.clip(x[:16] + np.float32(0.01), -1, 1)
-    for itype in ("IVFINT8", "IVFPQ"):
-        idx = ShardedANNIndex.build(x, mesh, BuildConfig(), index_type=itype)
-        assert idx._ivf_kernel_ok()
-        nprobe = min(s.centroids.shape[0] for s in idx.subs)
-        i_pk, d_pk = idx.search(q, 8, ef=nprobe)        # packed merge
-        monkeypatch.setattr(sa, "IVF_FOLD_MIN_Q", 1)
-        idx._fns.clear()
-        i_fd, d_fd = idx.search(q, 8, ef=nprobe)        # fold merge
-        monkeypatch.setattr(sa, "IVF_FOLD_MIN_Q", 4096)
-        np.testing.assert_allclose(
-            d_fd[:, 0], d_pk[:, 0], rtol=0, atol=0, err_msg=itype
-        )
-        overlap = np.mean([
-            len(set(i_pk[r]) & set(i_fd[r])) / 8 for r in range(len(q))
-        ])
-        assert overlap >= 0.9, f"{itype}: {overlap}"
-
-
-def test_sharded_ivf_kernel_path(data, mesh, monkeypatch):
-    """The Pallas slab-scan kernel under shard_map (interpret mode on CPU):
-    both IVF kinds must reproduce the per-shard single-chip engines (which
-    run the same kernel) through the sharded plan + two-int32 merge."""
-    from deepreadmapper_tpu.ops import ivf_kernel as ik
-
-    monkeypatch.setattr(ik, "INTERPRET", True)
-    x = np.tanh(data).astype(np.float32)
-    q = np.clip(x[:16] + np.float32(0.01), -1, 1)
-    for itype in ("IVFINT8", "IVFPQ"):
-        idx = ShardedANNIndex.build(x, mesh, BuildConfig(), index_type=itype)
-        assert idx._ivf_kernel_ok()
-        nprobe = min(s.centroids.shape[0] for s in idx.subs)
-        ids, d = idx.search(q, 8, ef=nprobe)
-        n_local = idx.n_local
-        all_i, all_d = [], []
-        for si, sub in enumerate(idx.subs):
-            assert sub._use_kernel()
-            i_s, d_s = sub.search(q, 8, ef=nprobe)
-            all_i.append(np.where(i_s >= 0, i_s + si * n_local, -1))
-            all_d.append(np.where(i_s >= 0, d_s, np.inf))
-        cat_d = np.concatenate(all_d, axis=1)
-        cat_i = np.concatenate(all_i, axis=1)
-        order = np.argsort(cat_d, axis=1, kind="stable")[:, :8]
-        want_d = np.take_along_axis(cat_d, order, axis=1)
-        np.testing.assert_allclose(
-            np.sort(d, axis=1), np.sort(want_d, axis=1),
-            rtol=1e-4, atol=1e-4, err_msg=itype,
-        )
-        want_i = np.take_along_axis(cat_i, order, axis=1)
-        overlap = np.mean([
-            len(set(ids[r]) & set(want_i[r])) / 8 for r in range(len(q))
-        ])
-        assert overlap >= 0.9, f"{itype}: {overlap}"
+    idx = ShardedANNIndex.build(x, mesh, BuildConfig(), index_type=itype)
+    nprobe = min(s.centroids.shape[0] for s in idx.subs)
+    ids, d = idx.search(q, 8, ef=nprobe)
+    n_local = idx.n_local
+    all_i, all_d = [], []
+    for si, sub in enumerate(idx.subs):
+        i_s, d_s = sub.search(q, 8, ef=nprobe)
+        all_i.append(np.where(i_s >= 0, i_s + si * n_local, -1))
+        all_d.append(np.where(i_s >= 0, d_s, np.inf))
+    cat_d = np.concatenate(all_d, axis=1)
+    cat_i = np.concatenate(all_i, axis=1)
+    order = np.argsort(cat_d, axis=1, kind="stable")[:, :8]
+    want_d = np.take_along_axis(cat_d, order, axis=1)
+    np.testing.assert_allclose(
+        np.sort(d, axis=1), np.sort(want_d, axis=1),
+        rtol=1e-4, atol=1e-4, err_msg=itype,
+    )
+    want_i = np.take_along_axis(cat_i, order, axis=1)
+    overlap = np.mean([
+        len(set(ids[r]) & set(want_i[r])) / 8 for r in range(len(q))
+    ])
+    assert overlap >= 0.9, f"{itype}: {overlap}"

@@ -66,3 +66,30 @@ def test_chunking_consistency():
     got_small = sw.sw_scores(a_mat, a_lens, a_mat[::-1].copy(), a_lens[::-1], chunk=3)
     got_big = sw.sw_scores(a_mat, a_lens, a_mat[::-1].copy(), a_lens[::-1])
     np.testing.assert_array_equal(got_small, got_big)
+
+
+def test_sw_batch_matches_scalar_dp_mixed_lengths():
+    """Batched SW (ops/sw.py) over rows of mixed true lengths equals the
+    scalar DP transliteration row by row."""
+    from deepreadmapper_tpu.tokenizer import strings_to_bytes
+
+    rng = np.random.default_rng(5)
+    alphabet = np.array(list("ACGT"))
+    a = ["".join(rng.choice(alphabet, n)) for n in [150, 150, 30, 150]]
+    b = ["".join(rng.choice(alphabet, n)) for n in [152, 40, 152, 152]]
+    am, al = strings_to_bytes(a)
+    bm, bl = strings_to_bytes(b)
+    got = sw.sw_scores(am, al, bm, bl)
+    want = [sw.sw_score_reference(x, y) for x, y in zip(a, b)]
+    np.testing.assert_array_equal(got, want)
+
+
+def test_sw_wrapped_query_matches_scalar_dp():
+    from deepreadmapper_tpu.tokenizer import strings_to_bytes
+
+    cand = "ACGTACGTACGTACGTACGT"
+    query = "<" + cand + ">"
+    am, al = strings_to_bytes([cand])
+    bm, bl = strings_to_bytes([query])
+    got = sw.sw_scores(am, al, bm, bl)
+    assert got[0] == sw.sw_score_reference(cand, query)

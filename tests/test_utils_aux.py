@@ -158,3 +158,26 @@ def test_inference_cli_streams_reads(tmp_path, data_dir):
     assert rc == 0
     want2 = Vectorizer().vectorize(seqs)
     np.testing.assert_allclose(np.load(out2), want2, rtol=1e-5, atol=1e-6)
+
+
+def test_compile_cache_dir_rules(monkeypatch):
+    """JAX_COMPILATION_CACHE_DIR wins and nothing else is set; otherwise the
+    GPU caches at the fixed <repo>/.jax_cache; the CPU keeps no cache."""
+    import jax
+
+    from deepreadmapper_tpu.utils import compile_cache as cc
+
+    before = jax.config.jax_compilation_cache_dir
+    try:
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", "/elsewhere")
+        assert cc.enable_compile_cache("gpu") == "/elsewhere"
+        assert jax.config.jax_compilation_cache_dir == before
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR")
+        assert cc.enable_compile_cache("cpu") is None
+        assert jax.config.jax_compilation_cache_dir == before
+        assert cc.enable_compile_cache("gpu") == str(cc.REPO_CACHE)
+        assert jax.config.jax_compilation_cache_dir == str(cc.REPO_CACHE)
+        assert cc.REPO_CACHE.name == ".jax_cache"
+        assert (cc.REPO_CACHE.parent / "chip_smoke.py").exists()
+    finally:
+        jax.config.update("jax_compilation_cache_dir", before)
